@@ -6,9 +6,15 @@ Phases (each prints one JSON line with its seconds and the depth it ran
 at; any failure raises and the script exits non-zero without a result
 line):
 
-0. probe   — requires CUDA; prints the card's name and power limit.
+0. probe   — requires CUDA; prints the card's name and power limit, and
+             its int32 lane rate (SMs x 64 INT32 lanes x the maximum SM
+             clock), the peak that bounds the DP kernels' operations.
 1. build   — builds the CUDA kernel library (nvcc, sm_90a) and the native
-             host library (g++) from this checkout, in parallel.
+             host library (g++) from this checkout, in parallel; prints
+             ptxas's registers and spills per kernel and, from
+             `cuobjdump -sass` of the library, the SASS instructions of one
+             step (the innermost loop holding the warp max) of each DP
+             kernel instance.
 2. data    — two synthetic genome sets from the seed.  Each: one 5.0 Mbp
              random base with four 1.5 kb repeats in 2, 4, 8 and 200 copies
              (the last stays above every preset's repeat band after
@@ -59,7 +65,16 @@ line):
              other and to the CPU run, each timed with CUDA events.
 6. kernels — each kernel against its plain version on the card at the
              shapes its path gives it, on adversarial inputs:
-             bit-identical (tolerance 0), with medians of CUDA-event times.
+             bit-identical (tolerance 0), with medians of CUDA-event times;
+             the padded DP at the many-contig slow batch's domain and at the
+             `-c 20` batch's; the DP rows carry their SASS instructions per
+             step and the steps their lanes take.  Then the microbenchmarks'
+             Pallas kernels (scripts/microbench_*.py, "K12"), each by its
+             contract at its script's default shapes through the kernel that
+             computes it: the row gather (nine gathers along the row and one
+             along axis 0 of a (512, 128) tile, transposed) and the
+             multi-payload scatter, against numpy's take_along_axis and the
+             script's scatter reference.
 
 The line before the last is the kernel table as one JSON object, the last
 line `{"ok": true, "device": {...}}`.
@@ -69,6 +84,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -79,32 +95,35 @@ import numpy as np
 import torch
 
 # published data-sheet peaks (NVIDIA): device-memory bandwidth in bytes/s
-# by card, and the non-tensor-core float32 rate used as the peak for the
-# int32 ALU work of the DP kernel (INT32 throughput is no higher than FP32 on
-# Hopper, so this bound is optimistic)
+# by card.  The DP kernels' compare-and-select work is int32, whose peak is
+# the card's int32 lane rate: Hopper issues 64 INT32 lanes per SM per clock
+# (half its 128 FP32 lanes, whose 67 TFLOP/s count an FMA as two
+# operations), so int32_rate() multiplies the SM count by 64 and by the
+# maximum SM clock that nvidia-smi reports
 _BW = (("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
        ("H100", 3.35e12))
-_ALU_PEAK = 67e12
+_INT32_LANES_PER_SM = 64
 # the least DRAM read of scattered int32 words is one 32-byte sector each
 _SECTOR = 32
-# int32 operations per (anchor, candidate) pair of the DP recurrence, counted
-# from the step of csrc/dp_compact.cu with the terms of one anchor alone
-# hoisted: d_q 1, d_r 2 (difference, orientation sign), gap 2 (difference,
-# abs), chunk tag and orientation test 3, both-valid test 2, the seven range
-# and inequality compares 7, band window compare 1, ten ANDs joining the
-# eleven predicates 10, candidate score 2, packed comb 3 (multiply, add,
-# select), running max 1
-_DP_OPS_PER_CANDIDATE = 34
-# the 3-plane step: the stored word's shift joins d_q (2), the chunk and
-# contig test is one equality beside the 3-operation orientation test (4),
-# and twelve predicates take eleven ANDs; the rest as above
-_DP_WIDE_OPS_PER_CANDIDATE = 37
-# the padded DPs' steps (csrc/dp_padded.cu), counted the same way: the
-# unpacked one has no shift in d_q (1) and a 2-operation contig and
-# orientation test; the packed one shifts the stored word (2) and tests
-# orientation with 3
-_DP_PADDED_OPS_PER_CANDIDATE = 33
-_DP_PACKED_OPS_PER_CANDIDATE = 35
+# int32 operations per (anchor, candidate) pair: the least the recurrence
+# needs, with the terms of one anchor hoisted, those of one stored anchor
+# kept with its slot (its query position, dp * RING, one packed root and
+# depth word) and the predicates joined inside the compares (Hopper's ISETP
+# takes a predicate operand): d_q 1; d_r - 1 = rp_j * s_i + o_i 1 (the
+# anchor's sign and offset hoisted); gap 2 (difference, abs); the range
+# tests 5 (d_q <= min(pcl, D_MAX_LIN_LENGTH), d_q != 0, 1 <= d_r <=
+# D_MAX_LIN_LENGTH as one unsigned compare, gap <= max_gap, the band
+# window); comb 2 (gap * -RING + dp_j * RING, then - age_j + U_t); the
+# running max 3 (compare, select the best and the payload): 14, and the
+# same-chunk, orientation and valid test of each layout: the cid tag, rev
+# and valid bits under one mask 2 (xor-and, compare; K3)
+_DP_OPS_PER_CANDIDATE = 16
+# rev and valid bits 2 and the chunk/contig word w3 1 (K8)
+_DP_WIDE_OPS_PER_CANDIDATE = 17
+# one equality of rcv (K10)
+_DP_PADDED_OPS_PER_CANDIDATE = 15
+# rev and valid bits 2; the contig rides in rprc and fails the d_r tests (K9)
+_DP_PACKED_OPS_PER_CANDIDATE = 16
 # expand_anchors per output slot: an 11-step binary search of the window
 # (compare, select, halve: 3 each) and about 7 for the fetch and the row
 _EXPAND_OPS_PER_SLOT = 40
@@ -164,6 +183,69 @@ def bandwidth(name: str) -> float:
     raise RuntimeError(f"no data-sheet bandwidth known for {name!r}")
 
 
+def int32_rate() -> dict:
+    """The card's int32 lane rate in operations/s: SMs x 64 x the maximum
+    SM clock, with its inputs."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    if r.returncode != 0:
+        raise RuntimeError("nvidia-smi failed: " + r.stderr)
+    mhz = float(r.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {"sms": sms, "int32_lanes_per_sm": _INT32_LANES_PER_SM,
+            "max_sm_clock_mhz": mhz,
+            "ops_per_s": sms * _INT32_LANES_PER_SM * mhz * 1e6}
+
+
+_SASS_FN = re.compile(r"Function : (\S+)")
+_SASS_INS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
+_SASS_BRA = re.compile(r"BRA (?:`\()?0x([0-9a-f]+)")
+
+
+def kernel_name(mangled: str):
+    """"name<N>" of a kernel instance from its mangled name (N: its
+    template arguments, none for a plain kernel)."""
+    m = re.search(r"([a-z][a-z_]*?_kernel)(?:I((?:L[ib]\d+E)+)E)?", mangled)
+    if m is None:
+        return None
+    args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def sass_step_counts(so: str, nvcc: str) -> dict:
+    """SASS instructions of one DP step per kernel instance of the library
+    `so` (cuobjdump -sass): the span of the innermost backward branch
+    whose loop holds a warp max (REDUX), keyed "name<N>"."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    r = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0:
+        raise RuntimeError("cuobjdump failed: " + r.stderr)
+    out, fns = {}, []
+    for ln in r.stdout.splitlines():
+        m = _SASS_FN.search(ln)
+        if m:
+            fns.append((m.group(1), []))
+            continue
+        m = _SASS_INS.search(ln)
+        if m and fns:
+            fns[-1][1].append((int(m.group(1), 16), m.group(2)))
+    for fn, ins in fns:
+        name = kernel_name(fn)
+        if name is None or not name.startswith("dp_"):
+            continue
+        spans = []
+        for a, txt in ins:
+            b = _SASS_BRA.search(txt)
+            if b and int(b.group(1), 16) < a and any(
+                    int(b.group(1), 16) <= x <= a and "REDUX" in t
+                    for x, t in ins):
+                spans.append((a - int(b.group(1), 16)) // 16 + 1)
+        out[name] = min(spans) if spans else None
+    return out
+
+
 def cuda_ms(fn, reps: int, warm: int = 2) -> float:
     """Median time of fn() over `reps` calls, CUDA events around each."""
     for _ in range(warm):
@@ -213,9 +295,27 @@ def build():
     th.join()
     if not res["native_ok"]:
         raise RuntimeError("native host library failed to build")
-    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    return None, dict(res, ptxas=ptxas)
+    sass = sass_step_counts(_build.SO, _build.nvcc_path())
+    return sass, dict(res, ptxas=ptxas_report(_build.build_log),
+                      sass_per_step=sass)
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes per kernel instance from ptxas -v."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\S+?)'?(?: |$)", ln)
+        if m:
+            name = kernel_name(m.group(1)) or m.group(1)
+            out.setdefault(name, {})
+        elif name and "spill stores" in ln:
+            b = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out[name].update(stack=b[0], spill_stores=b[1], spill_loads=b[2])
+        elif name and "registers" in ln:
+            out[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+    return out
 
 
 @phase("data")
@@ -450,7 +550,8 @@ def joins(batch):
 
 _OWN_KERNELS = ("row_gather_kernel", "row_scatter_multi_kernel",
                 "windowed_gather_kernel", "genome_map_gather_kernel",
-                "dp_compact_kernel", "dp_padded_kernel", "expand_kernel")
+                "dp_compact_kernel", "dp_wide_kernel", "dp_packed_kernel",
+                "dp_chain_kernel", "expand_kernel")
 
 
 def _device_events(fn, reps: int):
@@ -482,13 +583,30 @@ def device_ms(fn, reps: int = 5):
     always report every launch of a back-to-back run (a sum over `reps`
     read up to five times too low, and sometimes nothing at all), so each
     kernel's time is averaged over the launches it did report; None when
-    three tries reported none, or no time for them."""
-    for _ in range(3):
+    five tries reported none, or no time for them."""
+    for _ in range(5):
         _span, dev_us = _device_events(fn, reps)
         ms = sum(t / n for _k, t, n in dev_us if n) / 1e3
         if ms > 0:
             return ms
     return None
+
+
+def back_to_back_ms(fn, reps: int = 10) -> float:
+    """CUDA-event time of `reps` back-to-back fn() calls over their count:
+    the stream runs the kernels one after the other, so this is their
+    device time wherever a kernel outlasts the host's enqueue of the next
+    call (the millisecond DPs), and an upper bound elsewhere."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def profile_phase_a(fn, reps: int) -> dict:
@@ -655,14 +773,64 @@ def _sectors(R, K, idx_np, mask=None):
     return np.unique(sec if mask is None else sec[mask]).size
 
 
+def dp_candidates(valid, band) -> int:
+    """(anchor, candidate) pairs the recurrence needs: a valid anchor at
+    step i of its lane (the last axis) weighs the min(band, i) steps before
+    it."""
+    tt = np.minimum(np.arange(valid.shape[-1]), band)
+    return int((tt * (valid != 0)).sum())
+
+
+def compact_steps(w1, colc, S, H) -> dict:
+    """What the compact-layout lanes of K8 step on these inputs, against
+    the S + H steps of every lane before: the columns a lane scans (its S
+    and its halo up to the last column whose col_in_chunk exceeds its
+    offset) and the valid anchors among them (the steps it runs)."""
+    R, A = w1.shape
+    nseg = A // S
+    scanned, stepped = [], []
+    for seg in range(nseg):
+        for r in range(R):
+            last = -1
+            if seg + 1 < nseg:
+                hc = colc[r, (seg + 1) * S:(seg + 1) * S + H]
+                hit = np.nonzero(hc > np.arange(H))[0]
+                last = int(hit.max()) if hit.size else -1
+            T = S + last + 1
+            scanned.append(T)
+            stepped.append(int((w1[r, seg * S:seg * S + T] & 1).sum()))
+    return {"lanes": len(scanned), "before_per_lane": S + H,
+            "scanned_mean": float(np.mean(scanned)),
+            "scanned_max": int(np.max(scanned)),
+            "anchor_steps_mean": float(np.mean(stepped)),
+            "anchor_steps_max": int(np.max(stepped))}
+
+
+def padded_steps(rcv) -> dict:
+    """What the lanes of K10 step on these inputs: the valid anchors of a
+    lane, against the rows of its 32-row tiles that hold one (the steps
+    before)."""
+    valid = (rcv & 1) != 0
+    L = valid.shape[0]
+    tiles = np.add.reduceat(valid, np.arange(0, L, 32), axis=0) > 0
+    before = (tiles * np.minimum(32, L - np.arange(0, L, 32))[:, None]
+              ).sum(0)
+    return {"lanes": int(valid.shape[1]),
+            "anchor_steps_mean": float(valid.sum(0).mean()),
+            "anchor_steps_max": int(valid.sum(0).max()),
+            "before_mean": float(before.mean())}
+
+
 @phase("kernels")
-def kernels(batch, slow_batch, cs_batch, bw, name):
+def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
     """Every kernel against its plain version on the card.  K1-K3, the
     single-payload scatter, the packed padded DP and the expansion kernel
     at the default batch's shapes (the only path that gives the scatters P
     <= 65536); the windowed gather, the genome map gather and the 3-plane
-    DP at the slow batch's; the padded DP at the many-contig slow
-    batch's."""
+    DP at the slow batch's; the padded DP at the many-contig slow batch's
+    and the -c 20 batch's; then the microbenchmarks' contracts (K12) at
+    their scripts' shapes.  Bounds: bytes over the card's memory rate, DP
+    operations over its int32 lane rate (`rate`, from int32_rate())."""
     from skani_tpu_torch import synth
     from skani_tpu_torch.kernels import (dp_compact, dp_pallas,
                                          expand_pallas, gather)
@@ -677,6 +845,9 @@ def kernels(batch, slow_batch, cs_batch, bw, name):
     # (torch.profiler), beside the CUDA-event times, which at these sizes
     # are mostly the host's launch cost
     dev_ms, lib_dev_ms = {}, {}
+    # where each device time came from: "profiler", or "events" where the
+    # profiler reported no launch and back_to_back_ms stands in
+    dev_src, lib_dev_src = {}, {}
 
     def compare(kname, fn, plain, reps, plain_reps, library=None):
         got, want = fn(), plain()
@@ -689,11 +860,17 @@ def kernels(batch, slow_batch, cs_batch, bw, name):
                                for g, w in zip(got, want)):
             raise RuntimeError(f"{kname}: kernel differs from its plain "
                                f"version (max abs err {err})")
-        for acc, f in ((dev_ms, fn), (lib_dev_ms, library)):
+        for acc, src, f in ((dev_ms, dev_src, fn),
+                            (lib_dev_ms, lib_dev_src, library)):
             if f is not None:
-                # the sum over a kernel's call sites; None once any is
-                d, so_far = device_ms(f), acc.get(kname, 0.0)
-                acc[kname] = None if None in (d, so_far) else so_far + d
+                d = device_ms(f)
+                if d is None:   # the profiler reported no launch
+                    src[kname] = "events"
+                    d = back_to_back_ms(f)
+                else:
+                    src.setdefault(kname, "profiler")
+                # the sum over a kernel's call sites
+                acc[kname] = acc.get(kname, 0.0) + d
         return (err, cuda_ms(fn, reps),
                 cuda_ms(plain, plain_reps, 1 if plain_reps > 1 else 0),
                 None if library is None else cuda_ms(library, reps))
@@ -770,7 +947,8 @@ def kernels(batch, slow_batch, cs_batch, bw, name):
 
     # dp_chain_compact: chunked streams with segment-crossing chunks
     L_CAP, band = args["L_CAP"], args["band"]
-    w1, w2, colc = (t(x) for x in synth.dp_stream(rng, R, A, L_CAP))
+    cs_np = synth.dp_stream(rng, R, A, L_CAP)
+    w1, w2, colc = (t(x) for x in cs_np)
     dp_args = (band, args["pcl"], args["max_gap"], args["anchor_score"],
                L_CAP)
     err, ms, pms, _ = compare(
@@ -779,26 +957,21 @@ def kernels(batch, slow_batch, cs_batch, bw, name):
         lambda: dp_compact.dp_chain_compact_plain(w1, w2, colc, *dp_args),
         20, 2)
     S = dp_compact.seg_len(A, L_CAP)
-    # column i of a row has min(band, i) candidates; the halo columns that
-    # the segment layout scans twice are the kernel's cost, not the work's
-    candidates = R * (band * A - band * (band + 1) // 2)
+    # the halo columns that the segment layout scans twice are the kernel's
+    # cost, not the work's
+    candidates = dp_candidates(cs_np[0] & 1, band)
     rows.append(dict(name="dp_chain_compact",
                      shape=[[R, A]] * 3, err=err, ms=ms, plain_ms=pms,
                      library_ms=None, bytes=4 * 5 * R * A,
                      ops=_DP_OPS_PER_CANDIDATE * candidates, per_batch=1,
                      chain_steps=S + min(L_CAP, S), lanes=(A // S) * R,
+                     sass_per_step=sass.get("dp_compact_kernel"),
                      source="skani_tpu_torch/csrc/dp_compact.cu",
                      replaces="skani_tpu/kernels/dp_compact.py:233"))
 
     # dp_chain_packed: the default batch regrouped one lane per chunk,
     # (L_CAP, R * C_CAP); a lane without anchors, a full colinear lane,
     # validity holes, cross-contig neighbours, tied candidates
-    def candidates_of(valid, vband):
-        """(anchor, candidate) pairs the recurrence needs: a valid anchor
-        at row t weighs the min(band, t) rows before it."""
-        tt = np.minimum(np.arange(valid.shape[0]), vband)[:, None]
-        return int((tt * (valid != 0)).sum())
-
     RCp = R * args["C_CAP"]
     EB = int(np.ceil(np.log2(L_CAP)))
     pk_np = synth.padded_dp_case(rng, L_CAP, RCp, packed=True)
@@ -811,10 +984,13 @@ def kernels(batch, slow_batch, cs_batch, bw, name):
                      err=err, ms=ms, plain_ms=pms, library_ms=None,
                      bytes=4 * 3 * L_CAP * RCp,
                      ops=_DP_PACKED_OPS_PER_CANDIDATE
-                     * candidates_of(pk_np[0] & 1, band), per_batch=1,
+                     * dp_candidates((pk_np[0] & 1).T, band), per_batch=1,
                      chain_steps=L_CAP, lanes=RCp,
                      valid_anchors=int((pk_np[0] & 1).sum()),
                      ring=dp_compact.ring_size(band),
+                     sass_per_step=sass.get(
+                         f"dp_packed_kernel<"
+                         f"{max(dp_compact.ring_size(band) // 32, 1)}>"),
                      source="skani_tpu_torch/csrc/dp_padded.cu",
                      replaces="skani_tpu/kernels/dp_pallas.py:414"))
 
@@ -839,29 +1015,39 @@ def kernels(batch, slow_batch, cs_batch, bw, name):
                      replaces="skani_tpu/kernels/expand_pallas.py:105"))
 
     # dp_chain at the many-contig slow batch's padded domain (L_CAP, R *
-    # C_CAP), ring 128.  The synthetic lanes hold a valid prefix of uniform
-    # random length, which is more work than the real batch has (most of
-    # its lanes are empty): the batch's own time is in its profile
-    _ce, _cg, cargs, cab, _ = cs_batch
-    Lc, RCc, cband = (cargs["L_CAP"], int(cab.shape[1]) * cargs["C_CAP"],
-                      cargs["band"])
-    up_np = synth.padded_dp_case(rng, Lc, RCc)
-    up = [t(x) for x in up_np]
-    uargs = (cband, cargs["pcl"], cargs["max_gap"], cargs["anchor_score"])
-    err, ms, pms, _ = compare(
-        "dp_chain", lambda: dp_pallas.dp_chain(*up, *uargs),
-        lambda: dp_pallas.dp_chain_plain(*up, *uargs), 10, 1)
-    rows.append(dict(name="dp_chain", shape=[[Lc, RCc]] * 3, err=err, ms=ms,
-                     plain_ms=pms, library_ms=None,
-                     bytes=4 * 5 * Lc * RCc,
-                     ops=_DP_PADDED_OPS_PER_CANDIDATE
-                     * candidates_of(up_np[2] & 1, cband), per_batch=1,
-                     chain_steps=Lc, lanes=RCc,
-                     valid_anchors=int((up_np[2] & 1).sum()),
-                     ring=dp_compact.ring_size(cband),
-                     source="skani_tpu_torch/csrc/dp_padded.cu",
-                     replaces="skani_tpu/kernels/dp_pallas.py:240"))
-    del up, pk, ex
+    # C_CAP) and at the -c 20 batch's, ring 128 both.  The synthetic lanes
+    # hold a valid prefix of uniform random length, which is more work than
+    # the real batches have (most of their lanes are empty): the batches'
+    # own times are in their profiles
+    for key, (_ce, _cg, cargs, cab, _) in (("dp_chain", cs_batch),
+                                           ("dp_chain[c20]", c20_batch)):
+        Lc, RCc, cband = (cargs["L_CAP"],
+                          int(cab.shape[1]) * cargs["C_CAP"], cargs["band"])
+        up_np = synth.padded_dp_case(rng, Lc, RCc)
+        up = [t(x) for x in up_np]
+        uargs = (cband, cargs["pcl"], cargs["max_gap"],
+                 cargs["anchor_score"])
+        err, ms, pms, _ = compare(
+            key, lambda: dp_pallas.dp_chain(*up, *uargs),
+            lambda: dp_pallas.dp_chain_plain(*up, *uargs), 10, 1)
+        rows.append(dict(name=key, counter="dp_chain",
+                         shape=[[Lc, RCc]] * 3, err=err, ms=ms,
+                         plain_ms=pms, library_ms=None,
+                         bytes=4 * 5 * Lc * RCc,
+                             ops=_DP_PADDED_OPS_PER_CANDIDATE
+                         * dp_candidates((up_np[2] & 1).T, cband),
+                         per_batch=1,
+                         chain_steps=Lc, lanes=RCc,
+                         valid_anchors=int((up_np[2] & 1).sum()),
+                         ring=dp_compact.ring_size(cband),
+                         sass_per_step=sass.get(
+                             "dp_chain_kernel"
+                             f"<{dp_compact.ring_regs(cband)}>"),
+                         steps=padded_steps(up_np[2]),
+                         source="skani_tpu_torch/csrc/dp_padded.cu",
+                         replaces="skani_tpu/kernels/dp_pallas.py:240"))
+        del up
+    del pk, ex
 
     # --- the slow batch's shapes ---
     seng, _sgroup, sargs, sab, _ = slow_batch
@@ -925,7 +1111,8 @@ def kernels(batch, slow_batch, cs_batch, bw, name):
     # dp_chain_compact_wide at the slow batch's shape (ring 128); its plain
     # version walks S + H steps of ~50 launches each, so it runs once
     L_CAP, band = sargs["L_CAP"], sargs["band"]
-    wide = [t(x) for x in synth.dp_stream_wide(rng, R, A, L_CAP)]
+    wide_np = synth.dp_stream_wide(rng, R, A, L_CAP)
+    wide = [t(x) for x in wide_np]
     dp_args = (band, sargs["pcl"], sargs["max_gap"], sargs["anchor_score"],
                L_CAP)
     err, ms, pms, _ = compare(
@@ -934,13 +1121,17 @@ def kernels(batch, slow_batch, cs_batch, bw, name):
         lambda: dp_compact.dp_chain_compact_wide_plain(*wide, *dp_args),
         20, 1)
     S = dp_compact.seg_len(A, L_CAP)
-    candidates = R * (band * A - band * (band + 1) // 2)
+    candidates = dp_candidates(wide_np[0] & 1, band)
     rows.append(dict(name="dp_chain_compact_wide",
                      shape=[[R, A]] * 4, err=err, ms=ms, plain_ms=pms,
                      library_ms=None, bytes=4 * 6 * R * A,
                      ops=_DP_WIDE_OPS_PER_CANDIDATE * candidates,
                      per_batch=1, chain_steps=S + min(L_CAP, S),
                      lanes=(A // S) * R, ring=dp_compact.ring_size(band),
+                     sass_per_step=sass.get(
+                         f"dp_wide_kernel<{dp_compact.ring_regs(band)}>"),
+                     steps=compact_steps(wide_np[0], wide_np[3], S,
+                                         min(L_CAP, S)),
                      source="skani_tpu_torch/csrc/dp_compact.cu",
                      replaces="skani_tpu/kernels/dp_compact.py:248"))
     # the other rings and the tag packing at a reduced shape: exactness
@@ -948,8 +1139,8 @@ def kernels(batch, slow_batch, cs_batch, bw, name):
     variants = []
     for vband, vcap, tag in ((35, 512, False), (200, 512, False),
                              (20, 512, True)):
-        vin = [t(x) for x in synth.dp_stream_wide(rng, 8, 32768, vcap,
-                                                  tag=tag)]
+        vin_np = synth.dp_stream_wide(rng, 8, 32768, vcap, tag=tag)
+        vin = [t(x) for x in vin_np]
         vargs = (vband, sargs["pcl"], sargs["max_gap"],
                  sargs["anchor_score"], vcap)
         _e, vms, vpms, _ = compare(
@@ -960,19 +1151,141 @@ def kernels(batch, slow_batch, cs_batch, bw, name):
         variants.append({"band": vband, "ring": dp_compact.ring_size(vband),
                          "l_cap": vcap, "tag_packing": tag,
                          "shape": [8, 32768], "kernel_ms": vms,
-                         "plain_ms": vpms, "max_abs_err": 0})
+                         "plain_ms": vpms, "max_abs_err": 0,
+                         "sass_per_step": sass.get(
+                             "dp_wide_kernel"
+                             f"<{dp_compact.ring_regs(vband)}>"),
+                         "steps": compact_steps(
+                             vin_np[0], vin_np[3],
+                             dp_compact.seg_len(32768, vcap),
+                             min(vcap, dp_compact.seg_len(32768, vcap)))})
+
+    # --- the microbenchmarks' Pallas kernels (K12), each by its contract
+    # at its script's default shapes, on random int32 tables as the
+    # scripts make them: nine gathers along the row (the row gather), one
+    # along axis 0 of one tile (the row gather on the transposed tile),
+    # one two-payload scatter onto unique targets (the multi scatter).
+    # Rows that share a contract and inputs share one measurement
+    k12 = "scripts/microbench_"
+    for names, K, A, sort in (
+            ((("gather_at", "round5.py:93"),
+              ("gather_matsum", "round5.py:217"),
+              ("gather_ablate", "round5.py:273")), 40960, 49152, False),
+            ((("mxu_gather_i8", "phasea.py:100"),
+              ("mxu_gather_bw", "phasea.py:151")), 40960, 49152, True),
+            ((("gather_taa", "gather2.py:62"),
+              ("gather_take", "gather2.py:89")), 126208, 40960, False),
+            ((("g_a1", "gather3.py:73"), ("g_blk", "gather3.py:91")),
+             126208, 126208, False)):
+        R = 32
+        tab_np = rng.integers(-(1 << 31), 1 << 31, (R, K),
+                              dtype=np.int64).astype(np.int32)
+        idx_np = rng.integers(0, K, (R, A)).astype(np.int32)
+        if sort:
+            idx_np = np.sort(idx_np, axis=1)
+        tab, idx = t(tab_np), t(idx_np)
+        idx_l = idx.long()
+        key = "K12 " + "/".join(n for n, _ in names)
+        err, ms, pms, lms = compare(
+            key, lambda: gather.row_gather(tab, idx),
+            lambda: gather.row_gather_plain(tab, idx), 20, 20,
+            library=lambda: torch.gather(tab, 1, idx_l))
+        if not np.array_equal(gather.row_gather(tab, idx).cpu().numpy(),
+                              np.take_along_axis(tab_np, idx_np, axis=1)):
+            raise RuntimeError(f"{key}: differs from take_along_axis")
+        for n, rep in names:
+            rows.append(dict(
+                name=f"K12 {n}", counter="row_gather", timing=key,
+                shape=[[R, K], [R, A]], err=err, ms=ms, plain_ms=pms,
+                library_ms=lms, per_batch=0,
+                bytes=4 * 2 * R * A + _SECTOR * _sectors(R, K, idx_np),
+                ops=2 * R * A, source="skani_tpu_torch/csrc/gather.cu",
+                replaces=k12 + rep))
+        del tab, idx, idx_l
+    # g_a0: take_along_axis along axis 0 of one (512, 128) tile
+    tab_np = rng.integers(-(1 << 31), 1 << 31, (512, 128),
+                          dtype=np.int64).astype(np.int32)
+    idx_np = rng.integers(0, 512, (512, 128)).astype(np.int32)
+    tab_t, idx_t = t(tab_np.T), t(idx_np.T)
+    tab, idx_l = t(tab_np), t(idx_np).long()
+    err, ms, pms, lms = compare(
+        "K12 g_a0", lambda: gather.row_gather(tab_t, idx_t).T,
+        lambda: gather.row_gather_plain(tab_t, idx_t).T, 20, 20,
+        library=lambda: torch.gather(tab, 0, idx_l))
+    if not np.array_equal(gather.row_gather(tab_t, idx_t).T.cpu().numpy(),
+                          np.take_along_axis(tab_np, idx_np, axis=0)):
+        raise RuntimeError("K12 g_a0: differs from take_along_axis")
+    rows.append(dict(name="K12 g_a0", counter="row_gather",
+                     shape=[[512, 128], [512, 128]], err=err, ms=ms,
+                     plain_ms=pms, library_ms=lms, per_batch=0,
+                     bytes=4 * 3 * 512 * 128, ops=2 * 512 * 128,
+                     source="skani_tpu_torch/csrc/gather.cu",
+                     replaces=k12 + "gather3.py:116"))
+    # scatter_pc: (32, 2, 40960) payloads onto a permutation's first 40960
+    # targets of 49152
+    R, P, A = 32, 40960, 49152
+    tgt_np = np.stack([rng.permutation(A)[:P] for _ in range(R)]
+                      ).astype(np.int32)
+    sv_np = rng.integers(-(1 << 31), 1 << 31, (R, 2, P),
+                         dtype=np.int64).astype(np.int32)
+    ref = np.zeros((R, 2, A), np.int32)
+    for r in range(R):
+        ref[r][:, tgt_np[r]] = sv_np[r]
+    tgt, sv = t(tgt_np), t(sv_np)
+    err, ms, pms, _ = compare(
+        "K12 scatter_pc", lambda: gather.row_scatter_multi(tgt, sv, A),
+        lambda: gather.row_scatter_multi_plain(tgt, sv, A), 20, 20)
+    if not np.array_equal(gather.row_scatter_multi(tgt, sv, A).cpu().numpy(),
+                          ref):
+        raise RuntimeError("K12 scatter_pc: differs from the reference")
+    rows.append(dict(name="K12 scatter_pc", counter="row_scatter_multi",
+                     shape=[[R, P], [R, 2, P], [R, 2, A]], err=err, ms=ms,
+                     plain_ms=pms, library_ms=None, per_batch=0,
+                     bytes=4 * (R * P + 2 * R * P + 2 * R * A),
+                     ops=3 * R * P, source="skani_tpu_torch/csrc/gather.cu",
+                     replaces=k12 + "round5.py:155"))
+    # one lane's step chain alone (one warp on the card), 2048 valid
+    # anchors in one chunk, band 83: the latency of a step
+    lane = {}
+    qp1 = np.cumsum(rng.integers(1, 4, size=(1, 2048)), axis=1)
+    one = [t(x.astype(np.int32)) for x in (
+        qp1 * 4 + 1, qp1 + 1000, np.zeros((1, 2048)), np.arange(2048)[None])]
+    one_t = [t(x.T.astype(np.int32)) for x in (
+        qp1, qp1 + 1000, np.ones((1, 2048)))]
+    clock = rate["max_sm_clock_mhz"] * 1e6
+    for key, fn in (
+            ("dp_chain_compact_wide", lambda: dp_compact.dp_chain_compact_wide(
+                *one, 83, 2500, 300, 20, 1024)),
+            ("dp_chain", lambda: dp_pallas.dp_chain(*one_t, 83, 2500, 300,
+                                                     20))):
+        ms = cuda_ms(fn, 10)
+        lane[key] = {"ms": ms, "ns_per_step": ms * 1e6 / 2048,
+                     "cycles_per_step": ms * 1e-3 * clock / 2048}
+    # the SMs' issue rate on the DP rows: their lanes' steps times the SASS
+    # instructions of a step over the device time, per SM and cycle
+    for r in rows:
+        st, sp = r.get("steps"), r.get("sass_per_step")
+        if st and sp and r["name"] in dev_ms and dev_ms[r["name"]]:
+            r["issue_per_sm_cycle"] = (
+                st["lanes"] * st["anchor_steps_mean"] * sp
+                / (dev_ms[r["name"]] * 1e-3 * rate["sms"] * clock))
     for r in rows:
         t_bytes = r["bytes"] / bw * 1e3
-        t_ops = r["ops"] / _ALU_PEAK * 1e3
+        t_ops = r["ops"] / rate["ops_per_s"] * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        r["device_ms"] = dev_ms[r["name"]]
+        key = r.get("timing", r["name"])
+        r["device_ms"] = dev_ms[key]
+        r["device_ms_source"] = dev_src[key]
         r.setdefault("counter", r["name"])
-        r["library_device_ms"] = lib_dev_ms.get(r["name"])
+        r["library_device_ms"] = lib_dev_ms.get(key)
+        r["library_device_ms_source"] = lib_dev_src.get(key)
         emit({"kernel": r["name"], "shape": r["shape"],
               "kernel_ms": r["ms"], "device_ms": r["device_ms"],
+              "device_ms_source": r["device_ms_source"],
               "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
               "library_device_ms": r["library_device_ms"],
+              "library_device_ms_source": r["library_device_ms_source"],
               "bound_ms": r["bound_ms"],
               "bound_by": r["bound_by"], "bytes": int(r["bytes"]),
               "bytes_bound_ms": t_bytes, "ops": int(r["ops"]),
@@ -981,8 +1294,13 @@ def kernels(batch, slow_batch, cs_batch, bw, name):
               "chain_steps": r.get("chain_steps"), "ring": r.get("ring"),
               "lanes": r.get("lanes"),
               "valid_anchors": r.get("valid_anchors"),
-              "rows_flagged": r.get("rows_flagged"), "card": name})
+              "rows_flagged": r.get("rows_flagged"),
+              "sass_per_step": r.get("sass_per_step"),
+              "steps": r.get("steps"),
+              "issue_per_sm_cycle": r.get("issue_per_sm_cycle"),
+              "card": name})
     return rows, {"kernels_checked": len(rows), "tolerance": 0,
+                  "one_lane_step": lane,
                   "dp_chain_compact_wide_variants": variants}
 
 
@@ -999,10 +1317,12 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
+    rate = int32_rate()
     emit({"phase": "probe", "nvidia_smi": smi, "device": name,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "int32_rate": rate})
     bw = bandwidth(name)
-    build()
+    sass = build()
     # launch counts by path: each path is driven with the counts set to 0
     # just before it and read just after
     by_path = {}
@@ -1020,7 +1340,8 @@ def main() -> int:
         batch = batches["default"]
         by_path["padded"] = padded(batch, sets, a.seed)
     by_path["joins"] = joins(batch)
-    rows = kernels(batch, batches["slow"], batches["contigs_slow"], bw, name)
+    rows = kernels(batch, batches["slow"], batches["contigs_slow"],
+                   batches["c20"], bw, rate, sass, name)
     table = []
     for r in rows:
         n = {k: v[r["counter"]] for k, v in by_path.items()
@@ -1028,12 +1349,18 @@ def main() -> int:
         if not n:
             raise RuntimeError(f"{r['name']} was launched on no path")
         row = {"name": r["name"], "route": "cuda", "source": r["source"],
-               "replaces": r["replaces"], "launches": sum(n.values()),
+               "replaces": r["replaces"], "counter": r["counter"],
+               "launches": sum(n.values()),
                "launches_by_path": n, "max_abs_err": r["err"],
                "ms": r["ms"], "plain_ms": r["plain_ms"],
                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                "library_ms": r["library_ms"], "device_ms": r["device_ms"],
-               "library_device_ms": r["library_device_ms"]}
+               "device_ms_source": r["device_ms_source"],
+               "library_device_ms": r["library_device_ms"],
+               "library_device_ms_source": r["library_device_ms_source"]}
+        for k in ("sass_per_step", "steps"):
+            if r.get(k) is not None:
+                row[k] = r[k]
         table.append(row)
     print(smi, flush=True)
     emit({"kernels": table})

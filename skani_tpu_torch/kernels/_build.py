@@ -45,9 +45,9 @@ _SIGNATURES = {
     "skt_dp_chain_compact": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _I, _I, _I, _I, _P],
     "skt_dp_chain_compact_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _P],
+                                  _I, _I, _I, _I, _I, _I, _I, _P],
     "skt_dp_chain": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                     _I, _P],
+                     _I, _I, _P],
     "skt_dp_chain_packed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P],
     "skt_expand_anchors": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

@@ -31,10 +31,13 @@ is the anchor's chain-root COMPACT column (A <= 2^20, depth < L_CAP <=
 Two implementations with identical outputs on every column, valid or not:
 the plain versions (the segment-lane walk in torch ops, vectorised over
 lanes; T = S + H steps) and the CUDA kernels in csrc/dp_compact.cu (one
-warp per lane, RING / 32 ring slots per thread, shuffles and a warp max
-reduction per step).  The kernels are bound by the per-lane dependency
-chain of T steps, not by bytes.  A CPU tensor takes the plain version; a
-CUDA tensor launches the kernel or raises.
+warp per lane, shuffles and a warp max reduction per step).  The 2-plane
+kernel walks all T steps with one ring slot a thread; the 3-plane kernel
+stops each lane's halo after the last column it writes, steps only valid
+anchors, and holds a ring of ceil(band / 32) registers a thread.  Both are
+bound by the issue rate of the per-step int32 work, not by bytes.  A CPU
+tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ NEGI = -(1 << 29)       # "impossible" combined score
 #: kernel launches (CPU calls never count)
 LAUNCHES = {"dp_chain_compact": 0, "dp_chain_compact_wide": 0}
 
-#: widest ring the wide kernel holds in registers (8 slots per thread)
+#: widest ring the kernels hold in registers (8 registers of slots a thread)
 MAX_RING = 256
 
 
@@ -62,6 +65,13 @@ def ring_size(band: int) -> int:
     always retains the trailing `band` anchors), at least 8.  The default
     c=125 yields band 20 -> ring 32."""
     return max(8, 1 << int(np.ceil(np.log2(band + 1))))
+
+
+def ring_regs(band: int) -> int:
+    """Registers of ring slots a thread of the wide kernels
+    (dp_chain_compact_wide, dp_pallas.dp_chain): ceil(band / 32), so the
+    32 * NREG slots cover the band window; 1 to 8."""
+    return min(max((band + 31) // 32, 1), 8)
 
 
 def seg_len(A: int, l_cap: int) -> int:
@@ -234,11 +244,13 @@ def _run(name, planes, col_in_chunk, band, pcl, max_gap, anchor_score,
             raise TypeError(f"{name}: expected contiguous int32")
     score = torch.empty((R, A), dtype=torch.int32, device=dev)
     dr = torch.empty((R, A), dtype=torch.int32, device=dev)
+    # the wide kernel's ring registers
+    nreg = (ring_regs(band),) if len(planes) == 3 else ()
     lib = _build.lib()
     _build.check(getattr(lib, "skt_" + name)(
         *(t.data_ptr() for t in tensors), score.data_ptr(), dr.data_ptr(),
         R, A, S, H, int(band), int(pcl), int(max_gap), int(anchor_score),
-        RING, int(np.log2(RING)), _build.stream_ptr(dev)), name)
+        RING, int(np.log2(RING)), *nreg, _build.stream_ptr(dev)), name)
     LAUNCHES[name] += 1
     return score, dr
 

@@ -215,12 +215,53 @@ def dp_stream(rng, R, A, l_cap):
     return [x.astype(np.int32) for x in (w1, w2, f["colc"])]
 
 
-def dp_stream_wide(rng, R, A, l_cap, tag: bool = False):
+def _edge_row(rng, f, r, A, l_cap, S):
+    """Row r of _dp_fields rewritten with the segment layout's edge cases:
+    a chunk longer than S that starts just before a segment boundary and
+    ends past the next one, a chunk longer than l_cap, both at small steps
+    in a narrow position range (equal-score candidates), then short
+    chunks and phase A's padding tail."""
+    lens = [S - 300, S + 700, l_cap + 40]
+    while sum(lens) < (3 * A) // 4:
+        lens.append(int(rng.integers(1, 60)))
+    lens = np.array(lens)
+    lens[-1] -= int(lens.sum()) - (3 * A) // 4
+    total = int(lens.sum())
+    starts = np.cumsum(lens) - lens
+    i_in = np.arange(total) - np.repeat(starts, lens)
+    n = len(lens)
+    steps = rng.integers(0, 4, size=total) * rng.choice([1, 1, 7], total)
+    for k in f:
+        f[k][r] = 0
+    f["cid"][r, :total] = np.repeat(np.arange(n), lens)
+    f["qp"][r, :total] = np.cumsum(steps) + 50
+    f["rev"][r, :total] = np.repeat(rng.integers(0, 2, size=n), lens)
+    f["rc"][r, :total] = np.repeat(rng.integers(0, 2, size=n), lens)
+    f["rp"][r, :total] = np.clip(30000 + np.where(
+        f["rev"][r, :total] == 1, -1, 1) * np.cumsum(steps)
+        + rng.integers(-2, 3, size=total), 0, (1 << 24) - 1)
+    f["valid"][r, :total] = 1
+    f["colc"][r, :total] = i_in
+    f["colc"][r, total:] = np.arange(total, A) - starts[-1]
+
+
+def dp_stream_wide(rng, R, A, l_cap, tag: bool = False,
+                   edges: bool = False):
     """3-plane compact DP inputs (w1, w2, w3, col_in_chunk), int32 (R, A):
     w1 = qp << 2 | rev << 1 | valid, w2 = rp, and w3 = cid * 64 + rc (the
     full chunk id) or, with `tag`, cid mod 32 << 26 | rc; w3 is -1 on
-    invalid columns."""
+    invalid columns.  With `edges`, row 0 holds no valid anchor (its
+    col_in_chunk counts from 0, as phase A leaves a row without chunks)
+    and row 1 the segment layout's edge cases (_edge_row); A >= 8192."""
     f = _dp_fields(rng, R, A, l_cap)
+    if edges:
+        S = 2048
+        while S < l_cap:
+            S *= 2
+        for k in f:
+            f[k][0] = 0
+        f["colc"][0] = np.arange(A)
+        _edge_row(rng, f, 1, A, l_cap, min(S, A))
     v = f["valid"]
     w1 = v * ((f["qp"] << 2) | (f["rev"] << 1) | 1)
     w2 = v * f["rp"]

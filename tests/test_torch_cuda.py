@@ -367,3 +367,84 @@ def test_engine_many_contigs_cuda_matches_native(dev, contig_set):
                       "ci_lower"):
                 a, b = getattr(r, f), getattr(n, f)
                 assert a == b or (np.isnan(a) and np.isnan(b)), (c, i, j, f)
+
+
+# --- the redesigned wide DPs on the schedule's edge cases ---
+
+@pytest.mark.parametrize("band,l_cap,tag", [
+    (20, 256, True), (35, 256, False), (83, 1024, False), (125, 256, False),
+    (200, 256, False)])
+def test_dp_chain_compact_wide_kernel_edge_streams(dev, band, l_cap, tag):
+    """An all-invalid row, a chunk longer than S across two segment
+    boundaries, a chunk longer than the halo, equal-score runs and phase
+    A's padding tail (synth.dp_stream_wide(edges=True))."""
+    rng = np.random.default_rng(band + l_cap)
+    ins = _dev(synth.dp_stream_wide(rng, 4, 8192, l_cap, tag=tag,
+                                    edges=True), dev)
+    args = (band, 2500, 300, 20, l_cap)
+    n0 = dp_compact.LAUNCHES["dp_chain_compact_wide"]
+    got = dp_compact.dp_chain_compact_wide(*ins, *args)
+    assert dp_compact.LAUNCHES["dp_chain_compact_wide"] == n0 + 1
+    want = dp_compact.dp_chain_compact_wide_plain(*ins, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("band,L,RC", [
+    (20, 256, 40), (35, 256, 40), (83, 256, 77), (125, 256, 24),
+    (200, 256, 16)])
+def test_dp_chain_kernel_edge_lanes(dev, band, L, RC):
+    """synth.padded_dp_case at the band of each preset: an empty lane, a
+    colinear lane of tied candidates, validity holes, contig changes."""
+    rng = np.random.default_rng(band + L + RC)
+    ins = _dev(synth.padded_dp_case(rng, L, RC), dev)
+    got = dp_pallas.dp_chain(*ins, band, 2500, 300, 20)
+    want = dp_pallas.dp_chain_plain(*ins, band, 2500, 300, 20)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# --- the microbenchmarks' kernels (scripts/microbench_*.py) by contract ---
+
+@pytest.mark.parametrize("R,K,A,sort", [
+    (8, 40960, 4096, False),      # gather_at / gather_matsum / gather_ablate
+    (8, 40960, 4096, True),       # mxu_gather_i8 / mxu_gather_bw
+    (8, 126208, 4096, False),     # gather_taa / gather_take
+    (8, 4096, 4096, False)])      # g_a1 / g_blk (same shape)
+def test_row_gather_microbench_contracts(dev, R, K, A, sort):
+    rng = np.random.default_rng(K + A)
+    table = rng.integers(-(1 << 31), 1 << 31, (R, K),
+                         dtype=np.int64).astype(np.int32)
+    idx = rng.integers(0, K, (R, A)).astype(np.int32)
+    if sort:
+        idx = np.sort(idx, axis=1)
+    got = gather.row_gather(*_dev([table, idx], dev))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.take_along_axis(table, idx, axis=1))
+
+
+def test_row_gather_axis0_tile_contract(dev):
+    """g_a0: take_along_axis along axis 0 of one (512, 128) tile, through
+    the row gather on the transposed tile."""
+    rng = np.random.default_rng(512)
+    table = rng.integers(-(1 << 31), 1 << 31, (512, 128),
+                         dtype=np.int64).astype(np.int32)
+    idx = rng.integers(0, 512, (512, 128)).astype(np.int32)
+    got = gather.row_gather(*_dev([table.T, idx.T], dev)).T
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  np.take_along_axis(table, idx, axis=0))
+
+
+def test_row_scatter_multi_microbench_contract(dev):
+    """scatter_pc: two payloads onto unique in-range targets."""
+    rng = np.random.default_rng(2)
+    R, P, A = 8, 4096, 6144
+    tgt = np.stack([rng.permutation(A)[:P] for _ in range(R)]) \
+        .astype(np.int32)
+    vals = rng.integers(-(1 << 31), 1 << 31, (R, 2, P),
+                        dtype=np.int64).astype(np.int32)
+    want = np.zeros((R, 2, A), np.int32)
+    for r in range(R):
+        want[r][:, tgt[r]] = vals[r]
+    got = gather.row_scatter_multi(*_dev([tgt, vals], dev), A)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
