@@ -14,7 +14,7 @@ line):
              ptxas's registers and spills per kernel and, from
              `cuobjdump -sass` of the library, the SASS instructions of one
              step (the innermost loop holding the warp max) of each DP
-             kernel instance.
+             kernel instance, the 2-plane compact DP's by phase.
 2. data    — two synthetic genome sets from the seed.  Each: one 5.0 Mbp
              random base with four 1.5 kb repeats in 2, 4, 8 and 200 copies
              (the last stays above every preset's repeat band after
@@ -66,15 +66,17 @@ line):
 6. kernels — each kernel against its plain version on the card at the
              shapes its path gives it, on adversarial inputs:
              bit-identical (tolerance 0), with medians of CUDA-event times;
-             the padded DP at the many-contig slow batch's domain and at the
-             `-c 20` batch's; the DP rows carry their SASS instructions per
-             step and the steps their lanes take.  Then the microbenchmarks'
-             Pallas kernels (scripts/microbench_*.py, "K12"), each by its
-             contract at its script's default shapes through the kernel that
-             computes it: the row gather (nine gathers along the row and one
-             along axis 0 of a (512, 128) tile, transposed) and the
-             multi-payload scatter, against numpy's take_along_axis and the
-             script's scatter reference.
+             the 2-plane compact DP also on the default batch's own DP
+             inputs (captured from its phase_a); the padded DP at the
+             many-contig slow batch's domain and at the `-c 20` batch's; the
+             DP rows carry their SASS instructions per step (the 2-plane
+             compact DP's per phase) and the steps their lanes take.  Then
+             the microbenchmarks' Pallas kernels (scripts/microbench_*.py,
+             "K12"), each by its contract at its script's default shapes
+             through the kernel that computes it: the row gather (nine
+             gathers along the row and one along axis 0 of a (512, 128)
+             tile, transposed) and the multi-payload scatter, against
+             numpy's take_along_axis and the script's scatter reference.
 
 The line before the last is the kernel table as one JSON object, the last
 line `{"ok": true, "device": {...}}`.
@@ -213,10 +215,50 @@ def kernel_name(mangled: str):
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
+def _sass_loops(ins):
+    """The loops of one function's SASS: (first address, last address,
+    instruction texts) of each backward branch."""
+    loops = []
+    for a, txt in ins:
+        b = _SASS_BRA.search(txt)
+        if b and int(b.group(1), 16) < a:
+            lo = int(b.group(1), 16)
+            loops.append((lo, a, [t for x, t in ins if lo <= x <= a]))
+    return loops
+
+
+def _span(loop) -> int:
+    return (loop[1] - loop[0]) // 16 + 1
+
+
+def k3_phase_counts(loops, ins) -> dict:
+    """SASS instructions of K3's (dp_compact_kernel) tile loop (the smallest
+    loop with a shuffle), whose phases are straight-line code: `candidate`,
+    one band candidate of phase 1 (from the first to the last 128-bit
+    shared load, scaled to the load count, over that count); `phase2`, the
+    31 rounds (first to last shuffle); `tile_rest`, the rest of the loop,
+    run on every tile."""
+    none = {"candidate": None, "phase2": None, "tile_rest": None}
+    tiles = [l for l in loops if any("SHFL" in t for t in l[2])]
+    if not tiles:
+        return none
+    tile = min(tiles, key=_span)
+    in_tile = [(a, t) for a, t in ins if tile[0] <= a <= tile[1]]
+    loads = [a for a, t in in_tile if "LDS.128" in t]
+    shfl = [a for a, t in in_tile if "SHFL" in t]
+    if len(loads) < 2:
+        return none
+    phase1 = (max(loads) - min(loads)) / 16 * len(loads) / (len(loads) - 1)
+    phase2 = (max(shfl) - min(shfl)) // 16 + 1
+    return {"candidate": phase1 / len(loads), "phase2": phase2,
+            "tile_rest": _span(tile) - phase1 - phase2}
+
+
 def sass_step_counts(so: str, nvcc: str) -> dict:
     """SASS instructions of one DP step per kernel instance of the library
     `so` (cuobjdump -sass): the span of the innermost backward branch
-    whose loop holds a warp max (REDUX), keyed "name<N>"."""
+    whose loop holds a warp max (REDUX), keyed "name<N>"; K3's by phase
+    (k3_phase_counts)."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     r = subprocess.run([tool, "-sass", so], capture_output=True, text=True,
                        timeout=300)
@@ -235,14 +277,12 @@ def sass_step_counts(so: str, nvcc: str) -> dict:
         name = kernel_name(fn)
         if name is None or not name.startswith("dp_"):
             continue
-        spans = []
-        for a, txt in ins:
-            b = _SASS_BRA.search(txt)
-            if b and int(b.group(1), 16) < a and any(
-                    int(b.group(1), 16) <= x <= a and "REDUX" in t
-                    for x, t in ins):
-                spans.append((a - int(b.group(1), 16)) // 16 + 1)
+        loops = _sass_loops(ins)
+        spans = [_span(l) for l in loops
+                 if any("REDUX" in t for t in l[2])]
         out[name] = min(spans) if spans else None
+        if name == "dp_compact_kernel":   # and a step of a REDUX loop, if any
+            out[name] = dict(k3_phase_counts(loops, ins), step=out[name])
     return out
 
 
@@ -782,13 +822,14 @@ def dp_candidates(valid, band) -> int:
 
 
 def compact_steps(w1, colc, S, H) -> dict:
-    """What the compact-layout lanes of K8 step on these inputs, against
-    the S + H steps of every lane before: the columns a lane scans (its S
-    and its halo up to the last column whose col_in_chunk exceeds its
-    offset) and the valid anchors among them (the steps it runs)."""
+    """What the compact-layout lanes of K3 and K8 run on these inputs,
+    against the S + H steps of every lane before: the columns a lane scans
+    (its S and its halo up to the last column whose col_in_chunk exceeds
+    its offset), the valid anchors among them (K8's steps), its 32-column
+    tiles and those with a valid anchor (K3 runs both phases on them)."""
     R, A = w1.shape
     nseg = A // S
-    scanned, stepped = [], []
+    scanned, stepped, tiles, run = [], [], [], []
     for seg in range(nseg):
         for r in range(R):
             last = -1
@@ -797,13 +838,30 @@ def compact_steps(w1, colc, S, H) -> dict:
                 hit = np.nonzero(hc > np.arange(H))[0]
                 last = int(hit.max()) if hit.size else -1
             T = S + last + 1
+            v = np.zeros((T + 31) // 32 * 32, np.int64)
+            v[:T] = w1[r, seg * S:seg * S + T] & 1
             scanned.append(T)
-            stepped.append(int((w1[r, seg * S:seg * S + T] & 1).sum()))
+            stepped.append(int(v.sum()))
+            tiles.append(v.size // 32)
+            run.append(int((v.reshape(-1, 32).sum(1) > 0).sum()))
     return {"lanes": len(scanned), "before_per_lane": S + H,
             "scanned_mean": float(np.mean(scanned)),
             "scanned_max": int(np.max(scanned)),
             "anchor_steps_mean": float(np.mean(stepped)),
-            "anchor_steps_max": int(np.max(stepped))}
+            "anchor_steps_max": int(np.max(stepped)),
+            "tiles_mean": float(np.mean(tiles)),
+            "tiles_run_mean": float(np.mean(run))}
+
+
+def k3_sass_per_lane(st, sp, band):
+    """SASS instructions a K3 lane issues on average: each tile's rest, and
+    on each tile with a valid anchor the candidate groups of four that the
+    band reaches and phase 2."""
+    if None in (sp.get("candidate"), sp.get("phase2"),
+                sp.get("tile_rest")):
+        return None
+    return (st["tiles_mean"] * sp["tile_rest"] + st["tiles_run_mean"]
+            * (-(-band // 4) * 4 * sp["candidate"] + sp["phase2"]))
 
 
 def padded_steps(rcv) -> dict:
@@ -945,29 +1003,65 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
                      per_batch=1, source="skani_tpu_torch/csrc/gather.cu",
                      replaces="skani_tpu/kernels/gather_pallas.py:302"))
 
-    # dp_chain_compact: chunked streams with segment-crossing chunks
+    # dp_chain_compact: chunked streams with segment-crossing chunks, and
+    # the real default batch's own DP inputs (captured from its phase_a)
     L_CAP, band = args["L_CAP"], args["band"]
-    cs_np = synth.dp_stream(rng, R, A, L_CAP)
-    w1, w2, colc = (t(x) for x in cs_np)
     dp_args = (band, args["pcl"], args["max_gap"], args["anchor_score"],
                L_CAP)
-    err, ms, pms, _ = compare(
-        "dp_chain_compact",
-        lambda: dp_compact.dp_chain_compact(w1, w2, colc, *dp_args),
-        lambda: dp_compact.dp_chain_compact_plain(w1, w2, colc, *dp_args),
-        20, 2)
-    S = dp_compact.seg_len(A, L_CAP)
-    # the halo columns that the segment layout scans twice are the kernel's
-    # cost, not the work's
-    candidates = dp_candidates(cs_np[0] & 1, band)
-    rows.append(dict(name="dp_chain_compact",
-                     shape=[[R, A]] * 3, err=err, ms=ms, plain_ms=pms,
-                     library_ms=None, bytes=4 * 5 * R * A,
-                     ops=_DP_OPS_PER_CANDIDATE * candidates, per_batch=1,
-                     chain_steps=S + min(L_CAP, S), lanes=(A // S) * R,
-                     sass_per_step=sass.get("dp_compact_kernel"),
-                     source="skani_tpu_torch/csrc/dp_compact.cu",
-                     replaces="skani_tpu/kernels/dp_compact.py:233"))
+    from skani_tpu_torch.kernels import device_pipeline
+    from skani_tpu_torch.kernels.device_pipeline import phase_a
+    grabbed = []
+    k3 = device_pipeline.dp_chain_compact
+
+    def grab(*a, **k):
+        grabbed.append([x.clone() for x in a[:3]])
+        return k3(*a, **k)
+
+    device_pipeline.dp_chain_compact = grab
+    try:
+        phase_a(eng.db.arrays, ab, **args)
+    finally:
+        device_pipeline.dp_chain_compact = k3
+    if len(grabbed) != 1 or list(grabbed[0][0].shape) != [R, A]:
+        raise RuntimeError("dp_chain_compact: the default batch did not "
+                           "call it once at its (R, A)")
+    for key, ins in (("dp_chain_compact",
+                      [t(x) for x in synth.dp_stream(rng, R, A, L_CAP)]),
+                     ("dp_chain_compact[batch]", grabbed[0])):
+        w1, w2, colc = ins
+        err, ms, pms, _ = compare(
+            key, lambda: dp_compact.dp_chain_compact(w1, w2, colc, *dp_args),
+            lambda: dp_compact.dp_chain_compact_plain(w1, w2, colc,
+                                                      *dp_args), 20, 2)
+        # the profiler once read the batch's call at 0.4x its time: CUDA
+        # events over back-to-back calls beside it (the kernel outlasts the
+        # host's enqueue of the next call)
+        ev_ms = back_to_back_ms(
+            lambda: dp_compact.dp_chain_compact(w1, w2, colc, *dp_args), 20)
+        w1_np, colc_np = w1.cpu().numpy(), colc.cpu().numpy()
+        S = dp_compact.seg_len(A, L_CAP)
+        lanes = (A // S) * R
+        sms = rate["sms"]
+        # the halo columns that the segment layout scans twice are the
+        # kernel's cost, not the work's
+        rows.append(dict(name=key, counter="dp_chain_compact",
+                         shape=[[R, A]] * 3, err=err, ms=ms, plain_ms=pms,
+                         library_ms=None, bytes=4 * 5 * R * A,
+                         ops=_DP_OPS_PER_CANDIDATE
+                         * dp_candidates(w1_np & 1, band), per_batch=1,
+                         chain_steps=S + min(L_CAP, S), lanes=lanes,
+                         # a block a lane, spread evenly
+                         warps_per_sm={"mean": lanes / sms,
+                                       "max": -(-lanes // sms)},
+                         valid_anchors=int((w1_np & 1).sum()),
+                         device_ms_events=ev_ms,
+                         sass_per_step=sass.get("dp_compact_kernel"),
+                         steps=compact_steps(w1_np, colc_np, S,
+                                             min(L_CAP, S)),
+                         k3_band=band,
+                         source="skani_tpu_torch/csrc/dp_compact.cu",
+                         replaces="skani_tpu/kernels/dp_compact.py:233"))
+    del grabbed
 
     # dp_chain_packed: the default batch regrouped one lane per chunk,
     # (L_CAP, R * C_CAP); a lane without anchors, a full colinear lane,
@@ -1135,10 +1229,12 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
                      source="skani_tpu_torch/csrc/dp_compact.cu",
                      replaces="skani_tpu/kernels/dp_compact.py:248"))
     # the other rings and the tag packing at a reduced shape: exactness
-    # and a time each, no bound
+    # and a time each, no bound; bands 160 and 192 hold 5 and 6 registers
+    # of slots (dp_wide_kernel<6> spills: its time beside its neighbours')
     variants = []
     for vband, vcap, tag in ((35, 512, False), (200, 512, False),
-                             (20, 512, True)):
+                             (20, 512, True), (160, 512, False),
+                             (192, 512, False)):
         vin_np = synth.dp_stream_wide(rng, 8, 32768, vcap, tag=tag)
         vin = [t(x) for x in vin_np]
         vargs = (vband, sargs["pcl"], sargs["max_gap"],
@@ -1262,13 +1358,27 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
         lane[key] = {"ms": ms, "ns_per_step": ms * 1e6 / 2048,
                      "cycles_per_step": ms * 1e-3 * clock / 2048}
     # the SMs' issue rate on the DP rows: their lanes' steps times the SASS
-    # instructions of a step over the device time, per SM and cycle
+    # instructions of a step (K3: of its phases) over the device time, per
+    # SM and cycle
     for r in rows:
         st, sp = r.get("steps"), r.get("sass_per_step")
-        if st and sp and r["name"] in dev_ms and dev_ms[r["name"]]:
-            r["issue_per_sm_cycle"] = (
-                st["lanes"] * st["anchor_steps_mean"] * sp
-                / (dev_ms[r["name"]] * 1e-3 * rate["sms"] * clock))
+        if not (st and sp and dev_ms.get(r["name"])):
+            continue
+        if "k3_band" in r:
+            per_lane = k3_sass_per_lane(st, sp, r["k3_band"])
+            cols = st["scanned_mean"]
+            if per_lane is None and sp.get("step"):
+                # a kernel of one step a column over all S + H columns
+                per_lane, cols = r["chain_steps"] * sp["step"], \
+                    r["chain_steps"]
+            if per_lane is None:
+                continue
+            r["sass_per_column"] = per_lane / cols
+        else:
+            per_lane = st["anchor_steps_mean"] * sp
+        r["issue_per_sm_cycle"] = (
+            st["lanes"] * per_lane
+            / (dev_ms[r["name"]] * 1e-3 * rate["sms"] * clock))
     for r in rows:
         t_bytes = r["bytes"] / bw * 1e3
         t_ops = r["ops"] / rate["ops_per_s"] * 1e3
@@ -1283,6 +1393,7 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
         emit({"kernel": r["name"], "shape": r["shape"],
               "kernel_ms": r["ms"], "device_ms": r["device_ms"],
               "device_ms_source": r["device_ms_source"],
+              "device_ms_events": r.get("device_ms_events"),
               "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
               "library_device_ms": r["library_device_ms"],
               "library_device_ms_source": r["library_device_ms_source"],
@@ -1296,7 +1407,9 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
               "valid_anchors": r.get("valid_anchors"),
               "rows_flagged": r.get("rows_flagged"),
               "sass_per_step": r.get("sass_per_step"),
+              "sass_per_column": r.get("sass_per_column"),
               "steps": r.get("steps"),
+              "warps_per_sm": r.get("warps_per_sm"),
               "issue_per_sm_cycle": r.get("issue_per_sm_cycle"),
               "card": name})
     return rows, {"kernels_checked": len(rows), "tolerance": 0,
@@ -1358,7 +1471,8 @@ def main() -> int:
                "device_ms_source": r["device_ms_source"],
                "library_device_ms": r["library_device_ms"],
                "library_device_ms_source": r["library_device_ms_source"]}
-        for k in ("sass_per_step", "steps"):
+        for k in ("device_ms_events", "sass_per_step", "sass_per_column",
+                  "steps", "lanes", "warps_per_sm", "issue_per_sm_cycle"):
             if r.get(k) is not None:
                 row[k] = r[k]
         table.append(row)

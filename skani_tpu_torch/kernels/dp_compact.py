@@ -31,13 +31,15 @@ is the anchor's chain-root COMPACT column (A <= 2^20, depth < L_CAP <=
 Two implementations with identical outputs on every column, valid or not:
 the plain versions (the segment-lane walk in torch ops, vectorised over
 lanes; T = S + H steps) and the CUDA kernels in csrc/dp_compact.cu (one
-warp per lane, shuffles and a warp max reduction per step).  The 2-plane
-kernel walks all T steps with one ring slot a thread; the 3-plane kernel
-stops each lane's halo after the last column it writes, steps only valid
-anchors, and holds a ring of ceil(band / 32) registers a thread.  Both are
-bound by the issue rate of the per-step int32 work, not by bytes.  A CPU
-tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.
+warp per lane; each stops its halo after the last column it writes).  The
+2-plane kernel walks 32-column tiles in two phases: the candidates' terms
+that need no DP value in parallel, one target a thread, then the
+loop-carried chain, one shuffle and a max per valid column.  The 3-plane
+kernel steps only valid anchors over a ring of ceil(band / 32) registers a
+thread, with a warp max per step.  Neither is bound by bytes: the 2-plane
+kernel by its chain's latency, the 3-plane one by the issue rate of its
+int32 work.  A CPU tensor takes the plain version; a CUDA tensor launches
+the kernel or raises.
 """
 from __future__ import annotations
 

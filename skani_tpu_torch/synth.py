@@ -204,11 +204,27 @@ def _dp_fields(rng, R, A, l_cap):
     return f
 
 
-def dp_stream(rng, R, A, l_cap):
+def _edge_rows(rng, f, A, l_cap):
+    """Row 0 without a valid anchor (its col_in_chunk counts from 0, as
+    phase A leaves a row without chunks) and row 1 the segment layout's
+    edge cases (_edge_row); A >= 8192."""
+    S = 2048
+    while S < l_cap:
+        S *= 2
+    for k in f:
+        f[k][0] = 0
+    f["colc"][0] = np.arange(A)
+    _edge_row(rng, f, 1, A, l_cap, min(S, A))
+
+
+def dp_stream(rng, R, A, l_cap, edges: bool = False):
     """2-plane compact DP inputs (w1, w2, col_in_chunk), int32 (R, A): w1 =
     cid mod 32 << 26 | qp << 2 | rev << 1 | valid, w2 = rc << 25 | rp (see
-    _dp_fields for the stream's structure)."""
+    _dp_fields for the stream's structure).  With `edges`, rows 0 and 1
+    hold the edge cases of _edge_rows."""
     f = _dp_fields(rng, R, A, l_cap)
+    if edges:
+        _edge_rows(rng, f, A, l_cap)
     v = f["valid"]
     w1 = v * (((f["cid"] & 31) << 26) | (f["qp"] << 2) | (f["rev"] << 1) | 1)
     w2 = v * ((f["rc"] << 25) | f["rp"])
@@ -250,18 +266,11 @@ def dp_stream_wide(rng, R, A, l_cap, tag: bool = False,
     """3-plane compact DP inputs (w1, w2, w3, col_in_chunk), int32 (R, A):
     w1 = qp << 2 | rev << 1 | valid, w2 = rp, and w3 = cid * 64 + rc (the
     full chunk id) or, with `tag`, cid mod 32 << 26 | rc; w3 is -1 on
-    invalid columns.  With `edges`, row 0 holds no valid anchor (its
-    col_in_chunk counts from 0, as phase A leaves a row without chunks)
-    and row 1 the segment layout's edge cases (_edge_row); A >= 8192."""
+    invalid columns.  With `edges`, rows 0 and 1 hold the edge cases of
+    _edge_rows."""
     f = _dp_fields(rng, R, A, l_cap)
     if edges:
-        S = 2048
-        while S < l_cap:
-            S *= 2
-        for k in f:
-            f[k][0] = 0
-        f["colc"][0] = np.arange(A)
-        _edge_row(rng, f, 1, A, l_cap, min(S, A))
+        _edge_rows(rng, f, A, l_cap)
     v = f["valid"]
     w1 = v * ((f["qp"] << 2) | (f["rev"] << 1) | 1)
     w2 = v * f["rp"]

@@ -66,6 +66,28 @@ def test_dp_chain_compact_kernel_matches_plain(dev, band, l_cap):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("R,A,l_cap,band,edges", [
+    (3, 8192, 257, 8, False), (3, 8192, 512, 8, True),
+    (3, 8192, 512, 20, False), (3, 8192, 257, 20, True),
+    (3, 8192, 512, 20, True), (3, 8192, 257, 31, False),
+    (3, 8192, 512, 31, True), (33, 47104, 512, 20, False)])
+def test_dp_chain_compact_kernel_schedule_cases(dev, R, A, l_cap, band,
+                                                edges):
+    """The cases of the schedule test (tests/test_torch_dp_schedule.py
+    _COMPACT: bands 8, 20 and 31, caps 257 and 512, the 2-plane edge
+    streams) and the default batch's shape, kernel against plain version."""
+    rng = np.random.default_rng(band + l_cap + R)
+    ins = _dev(synth.dp_stream(rng, R, A, l_cap, edges=edges), dev)
+    args = (band, 2500, 300, 20, l_cap)
+    n0 = dp_compact.LAUNCHES["dp_chain_compact"]
+    got = dp_compact.dp_chain_compact(*ins, *args)
+    assert dp_compact.LAUNCHES["dp_chain_compact"] == n0 + 1
+    want = dp_compact.dp_chain_compact_plain(*ins, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].max()) >> 20 > 3
+
+
 def _dev(xs, dev):
     return [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in xs]
 
@@ -109,7 +131,8 @@ def test_row_scatter_kernel_matches_plain(dev):
 
 @pytest.mark.parametrize("band,l_cap,tag", [
     (35, 512, False), (83, 1024, False), (200, 512, False),
-    (20, 512, True), (5, 257, True)])
+    (20, 512, True), (5, 257, True), (32, 512, False), (64, 512, False),
+    (96, 512, False), (160, 512, False), (192, 512, False)])
 def test_dp_chain_compact_wide_kernel_matches_plain(dev, band, l_cap, tag):
     rng = np.random.default_rng(band * 1000 + l_cap)
     ins = _dev(synth.dp_stream_wide(rng, 3, 16384, l_cap, tag=tag), dev)
@@ -201,7 +224,8 @@ def test_engine_slow_preset_cuda_matches_native(dev):
 
 @pytest.mark.parametrize("band,L,RC", [
     (20, 512, 300), (35, 128, 1024), (83, 1024, 203), (200, 96, 64),
-    (5, 40, 9)])
+    (5, 40, 9), (32, 256, 300), (64, 256, 300), (96, 256, 203),
+    (160, 256, 64), (192, 256, 64)])
 def test_dp_chain_kernel_matches_plain(dev, band, L, RC):
     rng = np.random.default_rng(band * 1000 + L)
     ins = _dev(synth.padded_dp_case(rng, L, RC), dev)
@@ -373,7 +397,8 @@ def test_engine_many_contigs_cuda_matches_native(dev, contig_set):
 
 @pytest.mark.parametrize("band,l_cap,tag", [
     (20, 256, True), (35, 256, False), (83, 1024, False), (125, 256, False),
-    (200, 256, False)])
+    (200, 256, False), (32, 256, False), (64, 512, False), (96, 256, False),
+    (160, 256, False), (192, 256, False)])
 def test_dp_chain_compact_wide_kernel_edge_streams(dev, band, l_cap, tag):
     """An all-invalid row, a chunk longer than S across two segment
     boundaries, a chunk longer than the halo, equal-score runs and phase
@@ -392,7 +417,8 @@ def test_dp_chain_compact_wide_kernel_edge_streams(dev, band, l_cap, tag):
 
 @pytest.mark.parametrize("band,L,RC", [
     (20, 256, 40), (35, 256, 40), (83, 256, 77), (125, 256, 24),
-    (200, 256, 16)])
+    (200, 256, 16), (32, 256, 40), (64, 256, 40), (96, 256, 24),
+    (160, 256, 16), (192, 256, 16)])
 def test_dp_chain_kernel_edge_lanes(dev, band, L, RC):
     """synth.padded_dp_case at the band of each preset: an empty lane, a
     colinear lane of tied candidates, validity holes, contig changes."""

@@ -1,9 +1,32 @@
-"""The schedule of the Hopper kernels for dp_chain_compact_wide (K8) and
-dp_chain (K10), emulated in numpy on the CPU and held bit for bit, on every
-column, against the plain versions and the JAX package's kernels (Pallas in
-interpret mode, and the lax.scan reference of the padded DP).
+"""The schedules of the Hopper kernels for dp_chain_compact (K3),
+dp_chain_compact_wide (K8) and dp_chain (K10), emulated in numpy on the CPU
+and held bit for bit, on every column, against the plain versions and the
+JAX package's kernels (Pallas in interpret mode, and the lax.scan reference
+of the padded DP).
 
-The emulation follows csrc/dp_compact.cu dp_wide_kernel and
+The K3 emulation follows csrc/dp_compact.cu dp_compact_kernel lane by lane
+(vectorised over lanes), a 32-column tile at a time:
+
+  * the halo look-ahead, as K8's;
+  * phase 1, no DP value needed: each target column's band candidates as
+    terms (anchor_score - gap) * RING + RING - k, or INT32_MIN where the
+    candidate fails; a source in the previous tile adds its final dp * RING
+    and folds into the target's running best at once, a source in the tile
+    leaves its term in a 32 x 32 table;
+  * phase 2, the chain: rounds r = 0..30 in order, each sending source
+    r's dp * RING (its best & -RING) to every thread, which folds table
+    term + dp * RING (the kernel runs two rounds a shuffle; a round for an
+    invalid source folds only INT32_MIN terms);
+  * the running best starts at RING - 1, so only a taking candidate is
+    ever adopted: dp = best >> log2(RING) on every column, and a failed
+    candidate (INT32_MIN + dp * RING < 0) never is;
+  * root and depth (depth << 20 | root): a winner in the previous tile
+    gives its word plus 1 << 20 after phase 1; a round sends the source's
+    word beside its best.  Phase 1's fold order (the kernel keeps one
+    running best per age of a group of four) does not change the winner:
+    comb mod RING = RING - k is unique among a column's candidates.
+
+The K8 and K10 emulations follow csrc/dp_compact.cu dp_wide_kernel and
 csrc/dp_padded.cu dp_chain_kernel lane by lane (vectorised over lanes):
 
   * the halo look-ahead: a compact lane stops after the last halo column
@@ -26,12 +49,14 @@ import torch
 
 import jax.numpy as jnp
 
+from skani_tpu.kernels.dp_compact import dp_chain_compact as jax_dp
 from skani_tpu.kernels.dp_compact import \
     dp_chain_compact_wide as jax_dp_wide
 from skani_tpu.kernels.dp_pallas import _dp_pallas, _dp_scan
 from skani_tpu_torch import synth
 from skani_tpu_torch.kernels import dp_compact, dp_pallas
-from skani_tpu_torch.kernels.dp_compact import (NEGI, ROOT_BITS, ring_regs,
+from skani_tpu_torch.kernels.dp_compact import (CID_MASK, NEGI, QP_MASK,
+                                                ROOT_BITS, ring_regs,
                                                 ring_size, seg_len)
 
 torch.set_num_threads(1)
@@ -40,6 +65,7 @@ PCL, MAX_GAP, SCORE = 2500, 300, 20
 DMAX = 5000
 I32 = np.int32
 LID = np.arange(32, dtype=I32)
+I32MIN = I32(-(1 << 31))
 
 
 def _ages(n, nreg, K):
@@ -67,6 +93,170 @@ def _candidates(ok, comb, shift):
     return best_val, best_val > 0, win, ties
 
 
+def _halo_stop(cic, S, H, nseg, seg, row):
+    """The halo look-ahead: the last halo column that each lane writes
+    (col_in_chunk > its offset), -1 for none."""
+    last = np.full(seg.size, -1)
+    for i in range(seg.size):
+        if seg[i] + 1 < nseg:
+            hc = cic[row[i], (seg[i] + 1) * S:(seg[i] + 1) * S + H]
+            hit = np.nonzero(hc > np.arange(H))[0]
+            last[i] = hit.max() if hit.size else -1
+    return last
+
+
+def _write_rule(score, dr, writes, out_s, out_dr, cc, t0, nsteps, active,
+                seg, row, base_col, S, H):
+    """Each column from the lane that owns it: its own segment unless the
+    column's chunk began in an earlier segment (0 where no halo covers it),
+    and the halo columns whose chunk the lane owns."""
+    n = seg.size
+    t = np.broadcast_to(t0 + LID, (n, 32))
+    live = active[:, None] & (LID[None, :] < nsteps[:, None])
+    own = live & (t < S)
+    keep = own & (cc <= t)
+    zero = own & (cc > t) & ((seg[:, None] == 0) | (t >= H))
+    halo = live & (t >= S) & (cc > t - S)
+    rr = np.broadcast_to(row[:, None], (n, 32))
+    col = base_col[:, None] + t
+    for m, s_v, d_v in ((keep | halo, out_s, out_dr),
+                        (zero, 0 * out_s, 0 * out_dr)):
+        score[rr[m], col[m]] = s_v[m]
+        dr[rr[m], col[m]] = d_v[m]
+        np.add.at(writes, (rr[m], col[m]), 1)
+
+
+def emulate_compact(w1, w2, cic, band, pcl, max_gap, anchor_score, l_cap):
+    """dp_compact_kernel's schedule: returns (score, dr, stats)."""
+    R, A = w1.shape
+    S = seg_len(A, l_cap)
+    H = min(l_cap, S)
+    RING = ring_size(band)
+    shift = int(np.log2(RING))
+    nseg = A // S
+    n = nseg * R
+    seg = np.arange(n) // R
+    row = np.arange(n) % R
+    base_col = (seg * S).astype(I32)
+    last = _halo_stop(cic, S, H, nseg, seg, row)
+    T = S + last + 1
+    Tmax = int(T.max())
+    Tpad = (Tmax + 31) // 32 * 32
+
+    def marshal(x):
+        xp = np.concatenate([x, np.zeros((R, S + H + 32), I32)], axis=1)
+        return np.stack([xp[row[i], base_col[i]:base_col[i] + Tpad]
+                         for i in range(n)])
+
+    m1, m2, mc = (marshal(x) for x in (w1, w2, cic))
+    lim_q = I32(min(pcl, DMAX))
+    nring = I32(-RING)                       # also the mask of dp * RING
+    u0 = I32(np.int64((anchor_score + 1) * RING).astype(I32))
+    # the (source r, target i) term table: entries outside the band stay
+    # INT32_MIN from the start; the band's are rewritten every tile
+    term = np.full((n, 32, 32), I32MIN)
+    # the previous tile's source records: qp, w2, key, dp * RING, dr (all
+    # zero before the first tile: key 0 never matches a valid target)
+    pqp, pw2, pkey, ppj, pdr = (np.zeros((n, 32), I32) for _ in range(5))
+    score = np.zeros((R, A), I32)
+    dr = np.zeros((R, A), I32)
+    writes = np.zeros((R, A), np.int64)
+    stats = {"rounds": np.zeros(n, np.int64),
+             "tiles_stepped": 0, "tiles_skipped": 0, "ties": 0,
+             "prev_winners": 0, "tile_winners": 0, "lanes": n,
+             "halo_steps": last + 1}
+    ln = np.arange(n)[:, None]
+    for t0 in range(0, Tmax, 32):
+        active = t0 < T
+        nsteps = np.clip(T - t0, 0, 32)
+        c1, c2, cc = (m[:, t0:t0 + 32] for m in (m1, m2, mc))
+        live = active[:, None] & (LID[None, :] < nsteps[:, None])
+        valid = live & ((c1 & 1) != 0)
+        qp = (c1 >> I32(2)) & I32(QP_MASK)
+        key = c1 & I32(CID_MASK | 3)
+        tkey = np.where(valid, key, I32(-1))
+        wqp, ww2, wkey, wpj = (np.concatenate([p, c], axis=1) for p, c in (
+            (pqp, qp), (pw2, c2), (pkey, key), (ppj, np.zeros_like(qp))))
+        run = valid.any(1)
+        stats["tiles_stepped"] += int(run.sum())
+        stats["tiles_skipped"] += int((active & ~run).sum())
+        b = np.full((n, 32), I32(RING - 1))
+        idx = np.zeros((n, 32), I32)       # the winner's window index
+        # equal-score candidates at the best score (statistics only)
+        bs = np.full((n, 32), -1, np.int64)
+        nb = np.zeros((n, 32), np.int64)
+
+        def tally(comb, m):
+            sc = np.where(m & (comb >= RING), comb >> I32(shift), -1)
+            up = sc > bs
+            nb[:] = np.where(up, 1, np.where((sc == bs) & (sc >= 0),
+                                             nb + 1, nb))
+            bs[:] = np.maximum(bs, sc)
+
+        # phase 1: terms, and the previous tile's sources folded at once
+        rev = (c1 & 2) != 0
+        sgn = np.where(rev, I32(1), I32(-1))
+        off = np.where(rev, ~c2, c2 - I32(1))
+        lanes = run[:, None]
+        for k in range(1, band + 1):
+            pos = 32 + LID - k
+            sq, sw2, skey, spj = (x[:, pos] for x in (wqp, ww2, wkey, wpj))
+            d_q = qp - sq
+            d_r1 = sw2 * sgn + off
+            gap = np.abs(d_q - d_r1 - I32(1))
+            ok = (skey == tkey) & (d_q <= lim_q) & (d_q != 0) \
+                & (d_r1.view(np.uint32) < DMAX) & (gap <= I32(max_gap))
+            tk = np.where(ok, gap * nring + (u0 - I32(k)), I32MIN)
+            tile = LID >= k
+            li, ti = np.nonzero(lanes & tile[None, :])
+            term[li, ti - k, ti] = tk[li, ti]
+            comb = np.where(tile[None, :], I32MIN, tk + spj)
+            tally(comb, lanes & ~tile[None, :] & ok)
+            adopt = lanes & (comb > b)
+            b = np.where(adopt, comb, b)
+            idx = np.where(adopt, pos, idx)
+        # the winner of phase 1 lies in the previous tile
+        own = base_col[:, None] + I32(t0) + LID[None, :]
+        step = I32(1 << ROOT_BITS)
+        odr = np.where(b >= RING, pdr[ln, idx & 31] + step, own)
+        # phase 2: the chain, rounds r = 0..30 in pairs: source r's best
+        # and word, and source r + 1's state after round r, formed by every
+        # thread from source r + 1's best, word and term for source r
+        stats["rounds"] += 31 * run
+        for r in range(0, 31, 2):
+            pj0, d0 = b[:, r] & nring, odr[:, r] + step
+            c0 = term[:, r, :] + pj0[:, None]
+            pair = r + 1 < 31
+            if pair:
+                x, y, o1 = b[:, r + 1], term[:, r, r + 1], odr[:, r + 1]
+                c1s = y + pj0
+                pj1 = np.maximum(x, c1s) & nring
+                d1 = np.where(c1s > x, d0, o1) + step
+            tally(c0, lanes & (term[:, r, :] != I32MIN))
+            a0 = lanes & (c0 > b)
+            odr = np.where(a0, d0[:, None], odr)
+            b = np.where(lanes, np.maximum(b, c0), b)
+            if pair:
+                c1 = term[:, r + 1, :] + pj1[:, None]
+                tally(c1, lanes & (term[:, r + 1, :] != I32MIN))
+                a1 = lanes & (c1 > b)
+                odr = np.where(a1, d1[:, None], odr)
+                b = np.where(lanes, np.maximum(b, c1), b)
+        out_s = b >> I32(shift)
+        take = b >= RING
+        stats["ties"] += int((take & (nb > 1)).sum())
+        # the winner's column from its age (comb mod RING = RING - k)
+        src = LID[None, :] - (I32(RING) - (b & I32(RING - 1)))
+        stats["prev_winners"] += int((take & (src < 0)).sum())
+        stats["tile_winners"] += int((take & (src >= 0)).sum())
+        out_dr = odr
+        pqp, pw2, pkey, ppj, pdr = qp, c2, key, b & nring, out_dr
+        _write_rule(score, dr, writes, out_s, out_dr, cc, t0, nsteps,
+                    active, seg, row, base_col, S, H)
+    assert (writes == 1).all(), "every column is written exactly once"
+    return score, dr, stats
+
+
 def emulate_compact_wide(w1, w2, w3, cic, band, pcl, max_gap, anchor_score,
                          l_cap):
     """dp_wide_kernel's schedule: returns (score, dr, stats)."""
@@ -81,13 +271,7 @@ def emulate_compact_wide(w1, w2, w3, cic, band, pcl, max_gap, anchor_score,
     seg = np.arange(n) // R
     row = np.arange(n) % R
     base_col = (seg * S).astype(I32)
-    # the halo look-ahead
-    last = np.full(n, -1)
-    for i in range(n):
-        if seg[i] + 1 < nseg:
-            hc = cic[row[i], (seg[i] + 1) * S:(seg[i] + 1) * S + H]
-            hit = np.nonzero(hc > np.arange(H))[0]
-            last[i] = hit.max() if hit.size else -1
+    last = _halo_stop(cic, S, H, nseg, seg, row)
     T = S + last + 1
     Tmax = int(T.max())
     Tpad = (Tmax + 31) // 32 * 32
@@ -157,20 +341,8 @@ def emulate_compact_wide(w1, w2, w3, cic, band, pcl, max_gap, anchor_score,
             kage[idx, K, j] = -j
         kw1[:, K] = np.where(active[:, None] & ~mine_valid, I32(0),
                              kw1[:, K])
-        # the write rule, each column from the lane that owns it
-        t = np.broadcast_to(t0 + LID, (n, 32))
-        live = active[:, None] & (LID[None, :] < nsteps[:, None])
-        own = live & (t < S)
-        keep = own & (cc <= t)
-        zero = own & (cc > t) & ((seg[:, None] == 0) | (t >= H))
-        halo = live & (t >= S) & (cc > t - S)
-        rr = np.broadcast_to(row[:, None], (n, 32))
-        col = base_col[:, None] + t
-        for m, s_v, d_v in ((keep | halo, out_s, out_dr),
-                            (zero, 0 * out_s, 0 * out_dr)):
-            score[rr[m], col[m]] = s_v[m]
-            dr[rr[m], col[m]] = d_v[m]
-            np.add.at(writes, (rr[m], col[m]), 1)
+        _write_rule(score, dr, writes, out_s, out_dr, cc, t0, nsteps,
+                    active, seg, row, base_col, S, H)
     assert (writes == 1).all(), "every column is written exactly once"
     return score, dr, stats
 
@@ -245,12 +417,89 @@ def emulate_chain(qp, rp, rcv, band, pcl, max_gap, anchor_score):
     return dd[:L], root[:L], stats
 
 
+# --- K3: the 2-plane compact stream ---
+
+# (seed, R, A, l_cap, band, edges): bands 8, 20 (the default preset) and
+# 31 (the widest that the mod-32 cid tag allows) at per-chunk caps 257
+# and 512; `edges` as in _WIDE below, on the 2-plane words
+_COMPACT = [
+    (11, 3, 8192, 257, 8, False),
+    (12, 3, 8192, 512, 8, True),
+    (13, 3, 8192, 512, 20, False),
+    (14, 3, 8192, 257, 20, True),
+    (15, 3, 8192, 512, 20, True),
+    (16, 3, 8192, 257, 31, False),
+    (17, 3, 8192, 512, 31, True),
+]
+
+
+@pytest.mark.parametrize("seed,R,A,l_cap,band,edges", _COMPACT)
+def test_compact_schedule_matches_plain_and_pallas(seed, R, A, l_cap, band,
+                                                   edges):
+    w1, w2, colc = synth.dp_stream(np.random.default_rng(seed), R, A, l_cap,
+                                   edges=edges)
+    s, d, st = emulate_compact(w1, w2, colc, band, PCL, MAX_GAP, SCORE,
+                               l_cap)
+    ps, pd = dp_compact.dp_chain_compact_plain(
+        *map(torch.from_numpy, (w1, w2, colc)), band, PCL, MAX_GAP, SCORE,
+        l_cap)
+    np.testing.assert_array_equal(s, ps.numpy())
+    np.testing.assert_array_equal(d, pd.numpy())
+    js, jd = jax_dp(jnp.asarray(w1), jnp.asarray(w2), jnp.asarray(colc),
+                    band, PCL, MAX_GAP, SCORE, l_cap, interpret=True)
+    np.testing.assert_array_equal(s, np.asarray(js))
+    np.testing.assert_array_equal(d, np.asarray(jd))
+    # the schedule did what it is for on these streams
+    S = seg_len(A, l_cap)
+    H = min(l_cap, S)
+    assert (d >> ROOT_BITS).max() > 3                     # chains formed
+    assert st["tiles_skipped"] > 0                        # invalid tails
+    assert st["prev_winners"] > 0 and st["tile_winners"] > 0
+    assert st["halo_steps"].max() <= H
+    assert (st["halo_steps"][:-R] < H).any()              # halo stopped
+    # both phases only on tiles with a valid anchor
+    assert st["rounds"].sum() == 31 * st["tiles_stepped"]
+    assert st["tiles_stepped"] * 32 < st["lanes"] * (S + H)
+    if edges:
+        assert st["ties"] > 0                             # equal scores
+        assert (st["rounds"][::R] == 0).all()             # all-invalid lane
+        cols = np.arange(A)
+        assert (s[0] == 0).all()
+        assert (d[0] == np.where((cols < S) | (cols % S < H), cols, 0)).all()
+
+
+def test_compact_schedule_chunk_longer_than_segment():
+    """The 2-plane edge row: a chunk longer than S restarts mid-chunk in the
+    next lane (its columns there take the halo value up to H and 0 after
+    it), and the previous lane's halo reaches exactly its end."""
+    seed, R, A, l_cap, band, edges = _COMPACT[4]
+    w1, w2, colc = synth.dp_stream(np.random.default_rng(seed), R, A, l_cap,
+                                   edges=edges)
+    S = seg_len(A, l_cap)
+    H = min(l_cap, S)
+    s, d, st = emulate_compact(w1, w2, colc, band, PCL, MAX_GAP, SCORE,
+                               l_cap)
+    ps, pd = dp_compact.dp_chain_compact_plain(
+        *map(torch.from_numpy, (w1, w2, colc)), band, PCL, MAX_GAP, SCORE,
+        l_cap)
+    np.testing.assert_array_equal(s, ps.numpy())
+    np.testing.assert_array_equal(d, pd.numpy())
+    c1 = colc[1, S:2 * S]
+    past = (c1 > np.arange(S)) & (np.arange(S) >= H)
+    assert past.any() and (s[1, S:2 * S][past] == 0).all()
+    lane0, lane1 = 0 * R + 1, 1 * R + 1
+    assert st["halo_steps"][lane0] == H
+    assert 0 < st["halo_steps"][lane1] <= H
+
+
 # --- K8: the compact stream ---
 
 # (seed, R, A, l_cap, band, tag, edges): the tag packing at band 20, the
-# medium, slow, -c 20 and widest bands; `edges` puts an all-invalid lane in
-# row 0 and, in row 1, a chunk longer than S crossing two segment
-# boundaries, a chunk longer than l_cap (the halo) and equal-score runs
+# medium, slow, -c 20 and widest bands; bands 32, 64 and 96 (-c 78 / 39 /
+# 26), where the 32 * ring_regs(band) slots equal the band exactly, and 160
+# and 192 (5 and 6 registers); `edges` puts an all-invalid lane in row 0
+# and, in row 1, a chunk longer than S crossing two segment boundaries, a
+# chunk longer than l_cap (the halo) and equal-score runs
 _WIDE = [
     (1, 3, 8192, 256, 20, True, True),
     (2, 3, 8192, 256, 35, False, True),
@@ -258,6 +507,11 @@ _WIDE = [
     (4, 3, 8192, 256, 125, False, True),
     (5, 3, 8192, 256, 200, False, True),
     (6, 2, 8192, 512, 83, False, False),
+    (7, 3, 8192, 256, 32, False, True),
+    (8, 3, 8192, 512, 64, False, True),
+    (9, 3, 8192, 256, 96, False, True),
+    (10, 3, 8192, 256, 160, False, True),
+    (18, 3, 8192, 256, 192, False, True),
 ]
 
 
@@ -325,11 +579,14 @@ def test_compact_wide_schedule_chunk_longer_than_segment():
     assert 0 < st["halo_steps"][lane1] <= H
 
 
-@pytest.mark.parametrize("band", [20, 35, 83, 125, 200])
+@pytest.mark.parametrize("band", [20, 35, 83, 125, 200, 32, 64, 96, 160,
+                                  192])
 def test_band_sized_ring_registers(band):
     """ceil(band / 32) registers a thread: 1 / 2 / 3 / 4 / 7 at the bands
-    of the presets, against RING / 32 = 1 / 2 / 4 / 4 / 8."""
-    want = {20: 1, 35: 2, 83: 3, 125: 4, 200: 7}[band]
+    of the presets, against RING / 32 = 1 / 2 / 4 / 4 / 8; exactly band / 32
+    at 32, 64 and 96; 5 and 6 at 160 and 192."""
+    want = {20: 1, 35: 2, 83: 3, 125: 4, 200: 7, 32: 1, 64: 2, 96: 3,
+            160: 5, 192: 6}[band]
     assert ring_regs(band) == want and 32 * ring_regs(band) >= band
     assert ring_regs(band) <= max(ring_size(band) // 32, 1)
 
@@ -338,7 +595,8 @@ def test_band_sized_ring_registers(band):
 
 @pytest.mark.parametrize("band,L,RC", [
     (20, 96, 40), (35, 128, 40), (83, 256, 24), (125, 256, 24),
-    (200, 256, 16)])
+    (200, 256, 16), (32, 128, 40), (64, 256, 24), (96, 256, 24),
+    (160, 256, 16), (192, 256, 16)])
 def test_chain_schedule_matches_plain_scan_and_pallas(band, L, RC):
     """synth.padded_dp_case: an empty lane, a colinear lane (every
     candidate ties on the gap), validity holes, contig and strand changes
