@@ -588,10 +588,14 @@ def joins(batch):
                       "P": eng.db.P, "U": eng.db.U, "K": eng.db.K}
 
 
-_OWN_KERNELS = ("row_gather_kernel", "row_scatter_multi_kernel",
-                "windowed_gather_kernel", "genome_map_gather_kernel",
-                "dp_compact_kernel", "dp_wide_kernel", "dp_packed_kernel",
-                "dp_chain_kernel", "expand_kernel")
+# by name; "row_gather_kernel" and "dp_packed_kernel" are K1's and K9's
+# names before their Hopper redesigns, for runs of older trees
+_OWN_KERNELS = ("row_gather_smem_kernel", "row_gather_cluster_kernel",
+                "row_gather_l2_kernel", "row_gather_kernel",
+                "row_scatter_multi_kernel", "windowed_gather_kernel",
+                "genome_map_gather_kernel", "dp_compact_kernel",
+                "dp_wide_kernel", "dp_chain_packed_kernel",
+                "dp_packed_kernel", "dp_chain_kernel", "expand_kernel")
 
 
 def _device_events(fn, reps: int):
@@ -805,12 +809,22 @@ def padded(batch, sets, seed):
     return launches, info
 
 
-def _sectors(R, K, idx_np, mask=None):
+def _sectors(R, K, idx_np, mask=None, rows=None):
     """Distinct 32-byte sectors of a (R, K) int32 table that the in-range
-    (and, with `mask`, selected) entries of idx_np touch."""
-    rows = np.broadcast_to(np.arange(R)[:, None], idx_np.shape)
+    (and, with `mask`, selected) entries of idx_np touch; with `rows`
+    (R,), index row r reads table row rows[r]."""
+    rows = np.arange(R) if rows is None else np.asarray(rows)
+    rows = np.broadcast_to(rows.astype(np.int64)[:, None], idx_np.shape)
     sec = rows * ((K + 7) // 8) + np.clip(idx_np, 0, K - 1) // 8
     return np.unique(sec if mask is None else sec[mask]).size
+
+
+def row_map() -> bool:
+    """Whether this tree's row_gather takes a row map (older trees gather
+    from the batch's copy of the rows)."""
+    import inspect
+    from skani_tpu_torch.kernels import gather
+    return "rows" in inspect.signature(gather.row_gather).parameters
 
 
 def dp_candidates(valid, band) -> int:
@@ -934,32 +948,105 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
                 None if library is None else cuda_ms(library, reps))
 
     # row_gather at its two call sites of one batch: the dense_pos join
-    # (R, U) table at (R, P) indices, and the ref-side bpk (R, P) table at
-    # (R, A) indices; adversarial words, boundary and out-of-range indices
+    # (G, U) table at (R, P) indices, and the ref-side bpk (G, P) table at
+    # (R, A) indices, each through the batch's ref rows (repeated genome
+    # ids, the first and the last); adversarial words, boundary and
+    # out-of-range indices.  A tree without the row map gathers from the
+    # rows' copy, made outside the timed call.  Every body that can take
+    # a site's width is timed there (device ms by body)
+    rowmap = row_map()
+    G = eng.db.G
     g_ms = g_plain = g_lib = g_bytes = 0.0
     g_err = 0
-    g_shapes = []
+    g_shapes, g_bodies = [], []
     for K, N in ((U, P), (P, A)):
-        table = t(synth.adversarial_words(rng, (R, K)))
+        table = t(synth.adversarial_words(rng, (G, K)))
+        rows_np = rng.integers(0, G, size=R).astype(np.int32)
+        rows_np[:3] = [0, G - 1, 0]
+        rows_t = t(rows_np)
+        tab_r = table[rows_t.long()]
         idx_np = rng.integers(0, K, size=(R, N)).astype(np.int32)
         idx_np[:, :8] = [0, 1, 127, 128, K - 2, K - 1, -5, K + 7]
         idx = t(idx_np)
         idx_in = t(np.clip(idx_np, 0, K - 1))
+        if rowmap:
+            fn = lambda: gather.row_gather(table, idx, rows_t)
+        else:
+            fn = lambda: gather.row_gather(tab_r, idx)
         err, ms, pms, lms = compare(
-            "row_gather", lambda: gather.row_gather(table, idx),
-            lambda: gather.row_gather_plain(table, idx), 20, 20,
-            library=lambda: torch.gather(table, 1, idx_in.long()))
+            "row_gather", fn, lambda: gather.row_gather_plain(tab_r, idx),
+            20, 20, library=lambda: torch.gather(tab_r, 1, idx_in.long()))
         g_err, g_ms, g_plain, g_lib = (max(g_err, err), g_ms + ms,
                                        g_plain + pms, g_lib + lms)
         # idx read and out written once; of the table, only the distinct
-        # 32-byte sectors these (clamped) indices touch
-        g_bytes += 4 * 2 * R * N + _SECTOR * _sectors(R, K, idx_np)
-        g_shapes.append([[R, K], [R, N]])
+        # 32-byte sectors these (clamped) indices touch in the rows read
+        g_bytes += 4 * 2 * R * N + _SECTOR * _sectors(R, K, idx_np,
+                                                      rows=rows_np)
+        g_shapes.append([[G, K], [R, N], [R]])
+        if rowmap:
+            own = gather.row_gather_body(K)
+            by_body = {}
+            for body in (own, "l2"):
+                f = lambda: gather.row_gather(table, idx, rows_t, body=body)
+                if not torch.equal(f(), gather.row_gather_plain(tab_r, idx)):
+                    raise RuntimeError(f"row_gather: body {body} differs "
+                                       f"from its plain version")
+                by_body[body] = device_ms(f)
+            g_bodies.append({"table": [G, K], "idx": [R, N], "body": own,
+                             "device_ms": by_body})
+        del table, tab_r, idx, idx_in
     rows.append(dict(name="row_gather", shape=g_shapes, err=g_err,
                      ms=g_ms, plain_ms=g_plain, library_ms=g_lib,
                      bytes=g_bytes, ops=2 * R * (P + A), per_batch=2,
+                     bodies=g_bodies or None,
                      source="skani_tpu_torch/csrc/gather.cu",
                      replaces="skani_tpu/kernels/gather_pallas.py:601"))
+
+    # row_gather on the default batch's own inputs: its two calls (the
+    # dense_pos join of dense_cs, the ref-side gather of bpk), grabbed
+    # from its phase_a.  Before: the batch's copy of the rows, then the
+    # gather (what older trees run); after: the row-mapped kernel
+    from skani_tpu_torch.kernels import device_pipeline
+    from skani_tpu_torch.kernels.device_pipeline import phase_a
+    calls = []
+    k1 = device_pipeline.row_gather
+
+    def grab_k1(table, idx, *rest, **kw):
+        calls.append(idx.clone())
+        return k1(table, idx, *rest, **kw)
+
+    device_pipeline.row_gather = grab_k1
+    try:
+        phase_a(eng.db.arrays, ab, **args)
+    finally:
+        device_pipeline.row_gather = k1
+    if [list(c.shape) for c in calls] != [[R, P], [R, A]]:
+        raise RuntimeError(f"row_gather: the default batch made calls "
+                           f"{[list(c.shape) for c in calls]}, not its "
+                           f"two sites")
+    b_rows = ab[1].contiguous()
+    b_long = b_rows.long()
+    sites = [(eng.db.arrays[k], c) for k, c in zip(("dense_cs", "bpk"),
+                                                   calls)]
+    before = lambda: [gather.row_gather(tb[b_long], c) for tb, c in sites]
+    after = (lambda: [gather.row_gather(tb, c, b_rows) for tb, c in sites]) \
+        if rowmap else before
+    err, ms, pms, _ = compare(
+        "row_gather[batch]", lambda: tuple(after()),
+        lambda: tuple(gather.row_gather_plain(tb[b_long], c)
+                      for tb, c in sites), 20, 5)
+    b_np = b_rows.cpu().numpy()
+    rows.append(dict(
+        name="row_gather[batch]", counter="row_gather",
+        shape=[[list(tb.shape), list(c.shape), [R]] for tb, c in sites],
+        err=err, ms=ms, plain_ms=pms, library_ms=None,
+        bytes=sum(4 * 2 * c.numel() + _SECTOR * _sectors(
+            R, tb.shape[1], c.cpu().numpy(), rows=b_np) for tb, c in sites),
+        ops=2 * sum(c.numel() for _tb, c in sites), per_batch=2,
+        before_ms=cuda_ms(before, 20), before_device_ms=device_ms(before),
+        row_map=rowmap, source="skani_tpu_torch/csrc/gather.cu",
+        replaces="skani_tpu/kernels/gather_pallas.py:601"))
+    del calls, sites
 
     # row_scatter_multi: the fused two-payload fill, (R, 2, P) -> (R, 2, A)
     sidx = t(synth.unique_targets(rng, R, P, A))
@@ -1008,8 +1095,6 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
     L_CAP, band = args["L_CAP"], args["band"]
     dp_args = (band, args["pcl"], args["max_gap"], args["anchor_score"],
                L_CAP)
-    from skani_tpu_torch.kernels import device_pipeline
-    from skani_tpu_torch.kernels.device_pipeline import phase_a
     grabbed = []
     k3 = device_pipeline.dp_chain_compact
 
@@ -1076,15 +1161,21 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
         lambda: dp_pallas.dp_chain_packed_plain(*pk, *pargs), 20, 1)
     rows.append(dict(name="dp_chain_packed", shape=[[L_CAP, RCp]] * 2,
                      err=err, ms=ms, plain_ms=pms, library_ms=None,
+                     device_ms_events=back_to_back_ms(
+                         lambda: dp_pallas.dp_chain_packed(*pk, *pargs), 20),
+                     steps=padded_steps(pk_np[0]),
                      bytes=4 * 3 * L_CAP * RCp,
                      ops=_DP_PACKED_OPS_PER_CANDIDATE
                      * dp_candidates((pk_np[0] & 1).T, band), per_batch=1,
                      chain_steps=L_CAP, lanes=RCp,
                      valid_anchors=int((pk_np[0] & 1).sum()),
                      ring=dp_compact.ring_size(band),
+                     # the ring kernel's instance, or the one before it
                      sass_per_step=sass.get(
-                         f"dp_packed_kernel<"
-                         f"{max(dp_compact.ring_size(band) // 32, 1)}>"),
+                         "dp_chain_packed_kernel"
+                         f"<{dp_compact.ring_regs(band)}>") or sass.get(
+                         "dp_packed_kernel"
+                         f"<{max(dp_compact.ring_size(band) // 32, 1)}>"),
                      source="skani_tpu_torch/csrc/dp_padded.cu",
                      replaces="skani_tpu/kernels/dp_pallas.py:414"))
 
@@ -1292,6 +1383,7 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
         for n, rep in names:
             rows.append(dict(
                 name=f"K12 {n}", counter="row_gather", timing=key,
+                bodies=[gather.row_gather_body(K)] if rowmap else None,
                 shape=[[R, K], [R, A]], err=err, ms=ms, plain_ms=pms,
                 library_ms=lms, per_batch=0,
                 bytes=4 * 2 * R * A + _SECTOR * _sectors(R, K, idx_np),
@@ -1411,7 +1503,9 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
               "steps": r.get("steps"),
               "warps_per_sm": r.get("warps_per_sm"),
               "issue_per_sm_cycle": r.get("issue_per_sm_cycle"),
-              "card": name})
+              "bodies": r.get("bodies"), "before_ms": r.get("before_ms"),
+              "before_device_ms": r.get("before_device_ms"),
+              "row_map": r.get("row_map"), "card": name})
     return rows, {"kernels_checked": len(rows), "tolerance": 0,
                   "one_lane_step": lane,
                   "dp_chain_compact_wide_variants": variants}
@@ -1472,7 +1566,8 @@ def main() -> int:
                "library_device_ms": r["library_device_ms"],
                "library_device_ms_source": r["library_device_ms_source"]}
         for k in ("device_ms_events", "sass_per_step", "sass_per_column",
-                  "steps", "lanes", "warps_per_sm", "issue_per_sm_cycle"):
+                  "steps", "lanes", "warps_per_sm", "issue_per_sm_cycle",
+                  "bodies", "before_ms", "before_device_ms"):
             if r.get(k) is not None:
                 row[k] = r[k]
         table.append(row)

@@ -282,7 +282,7 @@ struct Wide {
   struct Pay {
     int dr;  // depth << 20 | root
     static __device__ __forceinline__ Pay own(int root) { return {root}; }
-    __device__ __forceinline__ Pay next(int src) const {
+    __device__ __forceinline__ Pay next(int src, const StepConst&) const {
       return {wadd(__shfl_sync(kFull, dr, src), 1 << kRootBits)};
     }
   };

@@ -30,20 +30,20 @@
 // kernels give a lane one WARP and a block 8 adjacent lanes; in the
 // transposed layout a lane's anchors are RC words apart, so the block moves
 // 32 rows at a time through shared memory: a row of 8 lanes is one 32-byte
-// sector, read and written whole.  An invalid anchor has no transition, so
-// its step skips the candidates, and a 32-row tile with no valid anchor in
-// the lane skips its steps (it only marks its ring slots invalid).
+// sector, read and written whole.  The next 32-row tile is copied into the
+// other half of a double buffer with cp.async while the current tile's
+// steps run.
 //
-// K9 (packed) keeps the ring of RING slots in registers as dp_compact.cu's
-// K3 does (slot s in thread s & 31, register s >> 5; a step updates its
-// slot by selects over every register) and loads each tile synchronously.
-//
-// K10 (unpacked) runs the wide ring and step of dp_ring.cuh (band-sized
-// ring, valid rows only, the same winner) on the slot words a = qp, b = rp,
-// c = rcv (same contig, orientation and both valid is one equality rcv_j ==
-// rcv_i, rcv_i being valid), root and depth carried apart; the next 32-row
-// tile is copied into the other half of a double buffer with cp.async
-// while the current tile's steps run.
+// Both run the wide ring and step of dp_ring.cuh (a band-sized ring of
+// ceil(band / 32) registers a thread, steps for valid anchors only, the
+// TPU's winner), under a layout policy each:
+//   K10 (dp_chain_kernel): a = qp, b = rp, c = rcv; same contig,
+//       orientation and both valid is one equality rcv_j == rcv_i (rcv_i
+//       valid); root and depth carried apart.
+//   K9 (dp_chain_packed_kernel): a = qprv, b = rprc, no third plane; same
+//       orientation and slot j valid is ((qprv_i ^ qprv_j) & 3) == 0
+//       (qprv_i valid); root and depth ride in one word, depth << EBITS |
+//       root, one hop deeper by adding 1 << EBITS.
 #include "dp_ring.cuh"
 
 namespace {
@@ -53,143 +53,6 @@ using namespace skt;
 constexpr int kLanes = 8;       // lanes (warps) per block
 constexpr int kRows = 32;       // rows per shared-memory tile
 constexpr int kPad = kLanes + 1;  // row stride: column reads hit 32 banks
-
-// K9: planes qprv, rprc, one output (ddr)
-template <int SLOTS>
-__global__ void __launch_bounds__(kLanes * 32)
-dp_packed_kernel(const int32_t* __restrict__ pa,
-                 const int32_t* __restrict__ pb, int32_t* __restrict__ out0,
-                 int L, int RC, int band, int pcl, int max_gap,
-                 int anchor_score, int bits, int ring, int ring_shift) {
-  __shared__ int32_t s_in[2][kRows * kPad];
-  __shared__ int32_t s_out[kRows * kPad];
-  const int warp = threadIdx.x >> 5;
-  const int lid = threadIdx.x & 31;
-  const int lane0 = blockIdx.x * kLanes;
-  // the cooperative tile copy: thread -> (row, lane) of the tile
-  const int c_row = threadIdx.x / kLanes;
-  const int c_lane = threadIdx.x % kLanes;
-  const bool c_ok = lane0 + c_lane < RC;
-  // ring < 32 only with SLOTS == 1: the upper threads hold no slot
-  const bool holds = lid < ring;
-
-  // this thread's ring slots: register k holds slot k * 32 + lid; the
-  // valid bit is bit 0 of aw
-  int dpw[SLOTS], aw[SLOTS], bw[SLOTS], rootw[SLOTS], depw[SLOTS],
-      slotw[SLOTS];
-#pragma unroll
-  for (int k = 0; k < SLOTS; ++k) {
-    dpw[k] = aw[k] = bw[k] = rootw[k] = depw[k] = 0;
-    slotw[k] = -(1 << 29);
-  }
-
-  for (int t0 = 0; t0 < L; t0 += kRows) {
-    {
-      const int t = t0 + c_row;
-      const bool in = c_ok && t < L;
-      const int64_t off = (int64_t)t * RC + lane0 + c_lane;
-      const int si = c_row * kPad + c_lane;
-      s_in[0][si] = in ? pa[off] : 0;
-      s_in[1][si] = in ? pb[off] : 0;
-    }
-    __syncthreads();
-    const int ri = lid * kPad + warp;
-    const int ac = s_in[0][ri];
-    const int bc = s_in[1][ri];
-    const int nsteps = min(kRows, L - t0);
-    const unsigned any_valid = __ballot_sync(kFull, lid < nsteps && (ac & 1));
-    int out_a = 0;
-    if (any_valid == 0) {
-      // no valid anchor in this lane's tile: every step is dp 0, depth 0,
-      // root t, and the tile's ring slots turn invalid (32 consecutive
-      // slots: one register of every thread, or the whole short ring)
-      const int k_tile = (t0 & (ring - 1)) >> 5;
-#pragma unroll
-      for (int k = 0; k < SLOTS; ++k) {
-        if (k == k_tile) aw[k] = 0;
-      }
-      out_a = t0 + lid;
-    } else {
-      for (int j = 0; j < nsteps; ++j) {
-        const int t = t0 + j;
-        const int a_i = __shfl_sync(kFull, ac, j);
-        const int b_i = __shfl_sync(kFull, bc, j);
-        int dp_t = 0, root_t = t, dep_t = 0;
-        if (a_i & 1) {  // uniform across the warp
-          const int qp_i = a_i >> 2;
-          const bool rev_i = (a_i >> 1) & 1;
-          const int lo_slot = max(t - band, 0);
-          int my_best = kNegI, my_root = 0, my_dep = 0;
-          bool my_ok = false;
-#pragma unroll
-          for (int k = 0; k < SLOTS; ++k) {
-            const int qp_j = aw[k] >> 2;
-            const int d_q = wsub(qp_i, qp_j);
-            const int d_r_f = wsub(b_i, bw[k]);
-            const int d_r = rev_i ? wsub(0, d_r_f) : d_r_f;
-            const int gap = wabs(wsub(d_r, d_q));
-            const bool same =
-                ((aw[k] ^ a_i) & 2) == 0 && (aw[k] & a_i & 1) == 1;
-            const bool ok = holds && same
-                && d_q <= pcl && d_q != 0
-                && b_i != bw[k]
-                && d_q <= kDMaxLin && d_r <= kDMaxLin
-                && d_r > 0
-                && gap <= max_gap
-                && slotw[k] >= lo_slot;
-            const int rel = wsub(slotw[k], t - ring);
-            const int cand = wadd(wsub(anchor_score, gap), dpw[k]);
-            const int comb = ok ? wadd(wmul(cand, ring), rel) : kNegI;
-            // comb is unique among ok slots (rel is), so > keeps one winner
-            if (ok && (!my_ok || comb > my_best)) {
-              my_best = comb;
-              my_root = rootw[k];
-              my_dep = depw[k];
-              my_ok = true;
-            }
-          }
-          const int best = __reduce_max_sync(kFull, my_best);
-          const int best_val = best >> ring_shift;
-          const bool take = best_val > 0;
-          const unsigned win_mask =
-              __ballot_sync(kFull, my_ok && my_best == best);
-          const int win = win_mask ? __ffs(win_mask) - 1 : 0;
-          const int root_w = __shfl_sync(kFull, my_root, win);
-          const int dep_w = __shfl_sync(kFull, my_dep, win);
-          dp_t = take ? best_val : 0;
-          root_t = take ? root_w : t;
-          dep_t = take ? dep_w + 1 : 0;
-        }
-        if (lid == j) {
-          out_a = wshl(dp_t, 2 * bits) | wshl(dep_t, bits) | root_t;
-        }
-        // the step's slot: selects, not branches, so the unrolled
-        // registers are never indexed dynamically
-        const int slot = t & (ring - 1);
-        const bool mine = lid == (slot & 31);
-#pragma unroll
-        for (int k = 0; k < SLOTS; ++k) {
-          const bool w = mine && k == (slot >> 5);
-          dpw[k] = w ? dp_t : dpw[k];
-          aw[k] = w ? a_i : aw[k];
-          bw[k] = w ? b_i : bw[k];
-          rootw[k] = w ? root_t : rootw[k];
-          depw[k] = w ? dep_t : depw[k];
-          slotw[k] = w ? t : slotw[k];
-        }
-      }
-    }
-    s_out[ri] = out_a;
-    __syncthreads();
-    {
-      const int t = t0 + c_row;
-      if (c_ok && t < L) {
-        const int64_t off = (int64_t)t * RC + lane0 + c_lane;
-        out0[off] = s_out[c_row * kPad + c_lane];
-      }
-    }
-  }
-}
 
 // 4-byte asynchronous copy global -> shared; `in` false fills a zero
 __device__ __forceinline__ void cp_async4(int32_t* dst, const int32_t* src,
@@ -208,10 +71,11 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // K10's layout policy: a = qp, b = rp, c = rcv
 struct Padded {
+  static constexpr int kPlanes = 3, kOuts = 2;
   struct Pay {
     int root, dep;
     static __device__ __forceinline__ Pay own(int root) { return {root, 0}; }
-    __device__ __forceinline__ Pay next(int src) const {
+    __device__ __forceinline__ Pay next(int src, const StepConst&) const {
       return {__shfl_sync(kFull, root, src),
               __shfl_sync(kFull, dep, src) + 1};
     }
@@ -220,24 +84,61 @@ struct Padded {
   static __device__ __forceinline__ bool rev(int, int c) {
     return (c & 2) != 0;
   }
+  static __device__ __forceinline__ bool valid(int, int c) {
+    return (c & 1) != 0;
+  }
   static __device__ __forceinline__ bool same(int, int c_i, int, int c_j) {
     return c_j == c_i;
   }
   static __device__ __forceinline__ void clear(int&, int& c) { c = 0; }
+  // dd = dp << DBITS | depth, root
+  static __device__ __forceinline__ void put(int32_t* s0, int32_t* s1, int i,
+                                             int dp, const Pay& pay,
+                                             int bits) {
+    s0[i] = wshl(dp, bits) | pay.dep;
+    s1[i] = pay.root;
+  }
 };
 
-// K10: planes qp, rp, rcv; outputs dd and root.  NREG registers of ring
-// slots a thread, ring length 32 * NREG >= band.
-template <int NREG>
-__global__ void __launch_bounds__(kLanes * 32)
-dp_chain_kernel(const int32_t* __restrict__ qp,
-                const int32_t* __restrict__ rp,
-                const int32_t* __restrict__ rcv, int32_t* __restrict__ dd,
-                int32_t* __restrict__ root, int L, int RC, int band, int pcl,
-                int max_gap, int anchor_score, int bits, int ring,
-                int ring_shift) {
-  __shared__ int32_t s_in[2][3][kRows * kPad];
-  __shared__ int32_t s_out[2][kRows * kPad];
+// K9's layout policy: a = qprv, b = rprc (no third plane)
+struct Packed {
+  static constexpr int kPlanes = 2, kOuts = 1;
+  struct Pay {
+    int w;  // depth << EBITS | root
+    static __device__ __forceinline__ Pay own(int root) { return {root}; }
+    __device__ __forceinline__ Pay next(int src, const StepConst& g) const {
+      return {wadd(__shfl_sync(kFull, w, src), g.pay_one)};
+    }
+  };
+  static __device__ __forceinline__ int qp(int a) { return a >> 2; }
+  static __device__ __forceinline__ bool rev(int a, int) {
+    return (a & 2) != 0;
+  }
+  static __device__ __forceinline__ bool valid(int a, int) {
+    return (a & 1) != 0;
+  }
+  static __device__ __forceinline__ bool same(int a_i, int, int a_j, int) {
+    return ((a_i ^ a_j) & 3) == 0;
+  }
+  static __device__ __forceinline__ void clear(int& a, int&) { a = 0; }
+  // ddr = dp << 2*EBITS | depth << EBITS | root
+  static __device__ __forceinline__ void put(int32_t* s0, int32_t*, int i,
+                                             int dp, const Pay& pay,
+                                             int bits) {
+    s0[i] = wshl(dp, 2 * bits) | pay.w;
+  }
+};
+
+// One block: 8 lanes (a warp each), NREG registers of ring slots a thread
+// (ring length 32 * NREG >= band), the planes and outputs of policy P.
+template <int NREG, class P>
+__device__ __forceinline__ void padded_dp(
+    const int32_t* __restrict__ p0, const int32_t* __restrict__ p1,
+    const int32_t* __restrict__ p2, int32_t* __restrict__ o0,
+    int32_t* __restrict__ o1, int L, int RC, const StepConst& g, int bits) {
+  constexpr int NP = P::kPlanes, NO = P::kOuts;
+  __shared__ int32_t s_in[2][NP][kRows * kPad];
+  __shared__ int32_t s_out[NO][kRows * kPad];
   const int warp = threadIdx.x >> 5;
   const int lid = threadIdx.x & 31;
   const int lane0 = blockIdx.x * kLanes;
@@ -246,21 +147,20 @@ dp_chain_kernel(const int32_t* __restrict__ qp,
   const bool c_ok = lane0 + c_lane < RC;
   const int si = c_row * kPad + c_lane;
   const int ri = lid * kPad + warp;
+  const int32_t* planes[3] = {p0, p1, p2};
+  int32_t* outs[2] = {o0, o1};
 
   // copy rows t0 .. t0+31 of the block's lanes into buffer b
   auto fetch = [&](int t0, int b) {
     const int t = t0 + c_row;
     const bool in = c_ok && t < L;
     const int64_t off = in ? (int64_t)t * RC + lane0 + c_lane : 0;
-    cp_async4(&s_in[b][0][si], qp + off, in);
-    cp_async4(&s_in[b][1][si], rp + off, in);
-    cp_async4(&s_in[b][2][si], rcv + off, in);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) cp_async4(&s_in[b][p][si], planes[p] + off, in);
     cp_async_commit();
   };
 
-  const StepConst g =
-      step_const(band, pcl, max_gap, anchor_score, ring, ring_shift);
-  Ring<NREG, Padded> rg;
+  Ring<NREG, P> rg;
 
   fetch(0, 0);
   for (int tq = 0; tq < L; tq += kRows * NREG) {
@@ -278,22 +178,51 @@ dp_chain_kernel(const int32_t* __restrict__ qp,
         cp_async_wait<0>();
       }
       __syncthreads();
-      const int cc = s_in[b][2][ri];
+      const int ca = s_in[b][0][ri];
+      const int cc = NP > 2 ? s_in[b][NP - 1][ri] : 0;
       int out_s;
-      Padded::Pay out;
-      rg.tile(K, lid, min(kRows, L - t0), s_in[b][0][ri], s_in[b][1][ri], cc,
-              (cc & 1) != 0, g, t0, out_s, out);
-      s_out[0][ri] = wshl(out_s, bits) | out.dep;
-      s_out[1][ri] = out.root;
+      typename P::Pay out;
+      rg.tile(K, lid, min(kRows, L - t0), ca, s_in[b][1][ri], cc,
+              P::valid(ca, cc), g, t0, out_s, out);
+      P::put(s_out[0], s_out[NO - 1], ri, out_s, out, bits);
       __syncthreads();
       const int t = t0 + c_row;
       if (c_ok && t < L) {
         const int64_t off = (int64_t)t * RC + lane0 + c_lane;
-        dd[off] = s_out[0][si];
-        root[off] = s_out[1][si];
+#pragma unroll
+        for (int o = 0; o < NO; ++o) outs[o][off] = s_out[o][si];
       }
     }
   }
+}
+
+// K10: planes qp, rp, rcv; outputs dd and root
+template <int NREG>
+__global__ void __launch_bounds__(kLanes * 32)
+dp_chain_kernel(const int32_t* __restrict__ qp,
+                const int32_t* __restrict__ rp,
+                const int32_t* __restrict__ rcv, int32_t* __restrict__ dd,
+                int32_t* __restrict__ root, int L, int RC, int band, int pcl,
+                int max_gap, int anchor_score, int bits, int ring,
+                int ring_shift) {
+  padded_dp<NREG, Padded>(
+      qp, rp, rcv, dd, root, L, RC,
+      step_const(band, pcl, max_gap, anchor_score, ring, ring_shift), bits);
+}
+
+// K9: planes qprv, rprc; output ddr
+template <int NREG>
+__global__ void __launch_bounds__(kLanes * 32)
+dp_chain_packed_kernel(const int32_t* __restrict__ qprv,
+                       const int32_t* __restrict__ rprc,
+                       int32_t* __restrict__ ddr, int L, int RC, int band,
+                       int pcl, int max_gap, int anchor_score, int ebits,
+                       int ring, int ring_shift) {
+  padded_dp<NREG, Packed>(
+      qprv, rprc, nullptr, ddr, nullptr, L, RC,
+      step_const(band, pcl, max_gap, anchor_score, ring, ring_shift,
+                 1 << ebits),
+      ebits);
 }
 
 }  // namespace
@@ -326,18 +255,22 @@ extern "C" int skt_dp_chain_packed(const void* qprv, const void* rprc,
                                    void* ddr, int L, int RC, int band,
                                    int pcl, int max_gap, int anchor_score,
                                    int ebits, int ring, int ring_shift,
-                                   void* stream) {
+                                   int nreg, void* stream) {
+  // refused, never run
+  if (ring > 256 || !nreg_ok(nreg, band)) return (int)cudaErrorInvalidValue;
   if (L <= 0 || RC <= 0) return (int)cudaGetLastError();
   const int blocks = (RC + kLanes - 1) / kLanes;
-#define SKT_PACKED(SLOTS)                                                  \
-  dp_packed_kernel<SLOTS><<<blocks, kLanes * 32, 0, (cudaStream_t)stream>>>( \
-      (const int32_t*)qprv, (const int32_t*)rprc, (int32_t*)ddr, L, RC,    \
-      band, pcl, max_gap, anchor_score, ebits, ring, ring_shift)
-  if (ring <= 32) SKT_PACKED(1);
-  else if (ring == 64) SKT_PACKED(2);
-  else if (ring == 128) SKT_PACKED(4);
-  else if (ring == 256) SKT_PACKED(8);
-  else return (int)cudaErrorInvalidValue;  // RING > 256: refused, never run
+#define SKT_PACKED(N)                                                      \
+  case N:                                                                  \
+    dp_chain_packed_kernel<N>                                              \
+        <<<blocks, kLanes * 32, 0, (cudaStream_t)stream>>>(                \
+            (const int32_t*)qprv, (const int32_t*)rprc, (int32_t*)ddr, L,  \
+            RC, band, pcl, max_gap, anchor_score, ebits, ring, ring_shift); \
+    break
+  switch (nreg) {
+    SKT_PACKED(1); SKT_PACKED(2); SKT_PACKED(3); SKT_PACKED(4);
+    SKT_PACKED(5); SKT_PACKED(6); SKT_PACKED(7); SKT_PACKED(8);
+  }
 #undef SKT_PACKED
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 // The ring and the step of the wide banded chaining DPs (sm_90a), shared by
 // dp_compact.cu's K8 (dp_wide_kernel, the compact stream) and dp_padded.cu's
-// K10 (dp_chain_kernel, the padded layout), and the wrapping int32 helpers
-// of every DP kernel.
+// K10 and K9 (dp_chain_kernel and dp_chain_packed_kernel, the padded
+// layout), and the wrapping int32 helpers of every DP kernel.
 //
 // One WARP per lane; NREG registers of ring slots a thread (ring length
 // 32 * NREG >= band; the wrappers pass NREG, kernels/dp_compact.py
@@ -36,8 +36,9 @@
 //                     slot valid (the anchor is)
 //   P::clear(a, c)    marks a slot empty
 //   P::Pay            root and depth: Pay::own(root) for an anchor that does
-//                     not take, pay.next(src) the winner's (in thread src)
-//                     one hop deeper
+//                     not take, pay.next(src, g) the winner's (in thread
+//                     src) one hop deeper (g.pay_one: one hop in a policy
+//                     whose depth field sits at a launch's bit offset)
 #pragma once
 
 #include <cuda_runtime.h>
@@ -76,15 +77,16 @@ inline bool nreg_ok(int nreg, int band) {
 
 // terms of every step, fixed for a launch
 struct StepConst {
-  int band, lim_q, max_gap, nring, u0, ring, ring_shift;
+  int band, lim_q, max_gap, nring, u0, ring, ring_shift, pay_one;
 };
 
 __device__ __forceinline__ StepConst step_const(int band, int pcl,
                                                 int max_gap,
                                                 int anchor_score, int ring,
-                                                int ring_shift) {
+                                                int ring_shift,
+                                                int pay_one = 0) {
   return {band, min(pcl, kDMaxLin), max_gap, wsub(0, ring),
-          wmul(wadd(anchor_score, 1), ring), ring, ring_shift};
+          wmul(wadd(anchor_score, 1), ring), ring, ring_shift, pay_one};
 }
 
 template <int NREG, class P>
@@ -159,7 +161,7 @@ struct Ring {
       if (best_val > 0) {  // uniform; one passing slot holds best
         const int win = __ffs(__ballot_sync(kFull, my_best == best)) - 1;
         dp_t = best_val;
-        pay_t = my_pay.next(win);
+        pay_t = my_pay.next(win, g);
       }
       if (lid == j) {
         out_s = dp_t;

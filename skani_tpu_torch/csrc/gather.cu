@@ -1,7 +1,8 @@
 // Row-local gather and unique-target scatter for phase A (sm_90a).
 //
 // skt_row_gather replaces skani_tpu/kernels/gather_pallas.py
-// mxu_row_gather (K1): out[r, a] = table[r, idx[r, a]].
+// mxu_row_gather (K1): out[r, a] = table[rows[r], idx[r, a]], with rows
+// the identity when none is given.
 // skt_row_scatter_multi replaces gather_pallas.py
 // mxu_row_scatter_multi_wide (K2): out[r, v, idx[r, p]] = vals[r, v, p],
 // zeros elsewhere, targets outside [0, K) dropped.  With V = 1 the same
@@ -14,30 +15,333 @@
 // out[r, p] = jw[r, skid[a_idx[r], p]].
 //
 // The TPU versions are one-hot byte-plane matrix products because that
-// chip has no fast gather.  Hopper has one, so both kernels implement the
-// contract directly: one thread per element, int32 words moved as bit
-// patterns.  Both are bound by memory traffic: the index and output
-// streams are read and written coalesced (consecutive threads, consecutive
-// columns); the table reads are random but stay inside one row, which at
-// phase A's widths (tens to hundreds of KB per row) is served from L2.
+// chip has no fast gather.  Hopper has one, so the kernels implement the
+// contract directly, int32 words moved as bit patterns.  All are bound by
+// memory traffic: the index and output streams are read and written
+// coalesced (consecutive threads, consecutive columns).
+//
+// K1 reads one table row per index row, at random.  A random 4-byte read
+// from global memory pulls a whole 32-byte sector through L2, so the
+// gather is staged where a row fits on chip:
+//   * smem body (a row of at most kRowSmemWords words, 227 KB): each block
+//     copies its row once into dynamic shared memory with TMA bulk copies
+//     (cp.async.bulk completing on an mbarrier) while its threads already
+//     load their first indices, then serves a contiguous span of the row's
+//     indices from shared memory: 4-byte bank reads instead of sectors.
+//     A few blocks share a row so that the grid fills the SMs once.
+//   * cluster body (up to kRowClusterMax row slices): a cluster of CL
+//     blocks on neighbouring SMs splits the row, each copying its slice,
+//     and every block reads any slice through distributed shared memory
+//     (ld.shared::cluster).  The row crosses L2 once a cluster.
+//   * L2 body (any width): 8 indices a thread, int4 index loads and output
+//     stores, the streams marked L2 evict_first and the table evict_last.
+// The body is chosen by the table width alone (kernels/gather.py
+// row_gather_body).  Index loads and output stores are int4 wherever the
+// index width is a multiple of 4 (else one word at a time), with streaming
+// cache hints.  `rows` (int32, clamped into [0, G)) maps output row r to
+// table row rows[r], so callers pass a device table and the batch's genome
+// ids instead of a per-batch copy of the rows.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void row_gather_kernel(const int32_t* __restrict__ table,
-                                  const int32_t* __restrict__ idx,
-                                  int32_t* __restrict__ out,
-                                  int K, int A) {
-  const int a = blockIdx.x * blockDim.x + threadIdx.x;
-  if (a >= A) return;
-  const int64_t r = blockIdx.y;
-  int j = idx[r * A + a];
-  // never read outside the row: out-of-range indices clamp to the row's
-  // edge (callers clip before the call, as the TPU kernel required)
-  j = j < 0 ? 0 : (j >= K ? K - 1 : j);
-  out[r * A + a] = __ldg(table + r * K + j);
+namespace cg = cooperative_groups;
+
+// --- K1 ---
+
+constexpr int kGatherThreads = 1024;  // smem and cluster bodies
+constexpr int kUnroll = 4;            // index units a thread keeps in flight
+constexpr int kL2Threads = 256;
+constexpr int kL2Per = 8;             // indices a thread of the L2 body
+constexpr int kBulkChunk = 16384;     // bytes per cp.async.bulk
+// dynamic shared memory of one block (232,448 bytes): 16 bytes of
+// mbarrier, then a row of up to kRowSmemWords words at a pad of 0-3 words
+constexpr int kSmemBytes = 232448;
+constexpr int kRowSmemWords = (kSmemBytes - 16) / 4 - 4;
+constexpr int kRowClusterMax = 4;
+
+__device__ __forceinline__ int clamp_row(int j, int K) {
+  return j < 0 ? 0 : (j >= K ? K - 1 : j);
 }
+
+__device__ __forceinline__ int source_row(const int32_t* rows, int r,
+                                          int G) {
+  return rows == nullptr ? r : clamp_row(rows[r], G);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Word i of the row where `pad` leaves src's first 16-byte boundary on one
+// of dst's: the shared row starts pad (0-3) words after its 16-byte
+// aligned base.
+__device__ __forceinline__ int stage_pad(const int32_t* src) {
+  const int head = (int)(((16u - ((unsigned)(uintptr_t)src & 15u)) & 15u)
+                         >> 2);
+  return (4 - head) & 3;
+}
+
+// Stages words [0, n) of src into dst[pad + i] (dst 16-byte aligned, pad =
+// stage_pad(src)): the 16-byte aligned middle by TMA bulk copies issued by
+// thread 0 that complete on `bar` (whose expected bytes thread 0 sets
+// first), the 0-3 words on either side by plain loads, which the caller's
+// next barrier publishes.
+__device__ __forceinline__ void stage_row(int32_t* dst, const int32_t* src,
+                                          int n, uint64_t* bar) {
+  const int pad = stage_pad(src);
+  const int head = min((4 - pad) & 3, n);
+  const int mid = (n - head) & ~3;
+  if (threadIdx.x == 0) {
+    const unsigned b = smem_addr(bar);
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+        "r"(mid * 4)
+        : "memory");
+    for (int off = 0; off < mid; off += kBulkChunk / 4) {
+      const int w = min(kBulkChunk / 4, mid - off);
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+          " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst + pad + head + off)),
+          "l"(src + head + off), "r"(w * 4), "r"(b)
+          : "memory");
+    }
+  }
+  const int t = threadIdx.x;
+  if (t < head) dst[pad + t] = src[t];
+  const int tail0 = head + mid;
+  if (t < n - tail0) dst[pad + tail0 + t] = src[tail0 + t];
+}
+
+// The span of one block: units [lo, hi) of its row (a unit is 4 words
+// where VEC, else one), spans balanced over nb blocks.
+__device__ __forceinline__ void block_span(int units, int b, int nb,
+                                           int& lo, int& hi) {
+  lo = (int)((int64_t)units * b / nb);
+  hi = (int)((int64_t)units * (b + 1) / nb);
+}
+
+template <bool VEC>
+__device__ __forceinline__ void load_units(const int32_t* __restrict__ irow,
+                                           int u, int hi,
+                                           int (&ix)[kUnroll][4]) {
+#pragma unroll
+  for (int k = 0; k < kUnroll; ++k) {
+    const int v = u + k * (int)blockDim.x;
+    if (v < hi) {
+      if constexpr (VEC) {
+        const int4 q = __ldcs(reinterpret_cast<const int4*>(irow) + v);
+        ix[k][0] = q.x;
+        ix[k][1] = q.y;
+        ix[k][2] = q.z;
+        ix[k][3] = q.w;
+      } else {
+        ix[k][0] = __ldcs(irow + v);
+      }
+    }
+  }
+}
+
+template <bool VEC, class Get>
+__device__ __forceinline__ void store_units(int32_t* __restrict__ orow,
+                                            int u, int hi, int K,
+                                            const int (&ix)[kUnroll][4],
+                                            const Get& get) {
+#pragma unroll
+  for (int k = 0; k < kUnroll; ++k) {
+    const int v = u + k * (int)blockDim.x;
+    if (v < hi) {
+      if constexpr (VEC) {
+        int4 o;
+        o.x = get(clamp_row(ix[k][0], K));
+        o.y = get(clamp_row(ix[k][1], K));
+        o.z = get(clamp_row(ix[k][2], K));
+        o.w = get(clamp_row(ix[k][3], K));
+        __stcs(reinterpret_cast<int4*>(orow) + v, o);
+      } else {
+        __stcs(orow + v, get(clamp_row(ix[k][0], K)));
+      }
+    }
+  }
+}
+
+// Serves units [lo, hi) of one index row through get(j): the first
+// kUnroll units a thread are loaded before ready() (the row's arrival)
+// returns, so the index stream overlaps the row copy.
+template <bool VEC, class Ready, class Get>
+__device__ __forceinline__ void serve(const int32_t* __restrict__ irow,
+                                      int32_t* __restrict__ orow, int lo,
+                                      int hi, int K, const Ready& ready,
+                                      const Get& get) {
+  int ix[kUnroll][4];
+  const int step = kUnroll * (int)blockDim.x;
+  int u = lo + (int)threadIdx.x;
+  load_units<VEC>(irow, u, hi, ix);
+  ready();
+  while (u < hi) {
+    store_units<VEC>(orow, u, hi, K, ix, get);
+    u += step;
+    load_units<VEC>(irow, u, hi, ix);
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kGatherThreads)
+row_gather_smem_kernel(const int32_t* __restrict__ table,
+                       const int32_t* __restrict__ idx,
+                       const int32_t* __restrict__ rows,
+                       int32_t* __restrict__ out, int G, int K, int A) {
+  extern __shared__ __align__(16) int32_t s_buf[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_buf);
+  int32_t* srow = s_buf + 4;
+  const int64_t r = blockIdx.y;
+  const int32_t* trow = table + (int64_t)source_row(rows, (int)r, G) * K;
+  if (threadIdx.x == 0) mbar_init(bar);
+  __syncthreads();
+  stage_row(srow, trow, K, bar);
+  const int32_t* s = srow + stage_pad(trow);
+  int lo, hi;
+  block_span(VEC ? A / 4 : A, blockIdx.x, gridDim.x, lo, hi);
+  serve<VEC>(idx + r * A, out + r * A, lo, hi, K,
+             [&] {
+               __syncthreads();  // the plain-loaded ends of the row
+               mbar_wait(bar, 0);
+             },
+             [&](int j) { return s[j]; });
+}
+
+// CL blocks of a cluster split the row into slices of S words (S a
+// multiple of 4, so every slice's source has the row's alignment and the
+// same pad); block q of cluster c serves span c * CL + q of the row.
+template <int CL, bool VEC>
+__global__ void __launch_bounds__(kGatherThreads)
+row_gather_cluster_kernel(const int32_t* __restrict__ table,
+                          const int32_t* __restrict__ idx,
+                          const int32_t* __restrict__ rows,
+                          int32_t* __restrict__ out, int G, int K, int A,
+                          int S) {
+  extern __shared__ __align__(16) int32_t s_buf[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_buf);
+  int32_t* srow = s_buf + 4;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = (int)cluster.block_rank();
+  const int64_t r = blockIdx.y;
+  const int32_t* trow = table + (int64_t)source_row(rows, (int)r, G) * K;
+  if (threadIdx.x == 0) mbar_init(bar);
+  __syncthreads();
+  const int j0 = q * S;
+  stage_row(srow, trow + j0, max(0, min(S, K - j0)), bar);
+  // shared::cluster address of word 0 of every slice
+  const unsigned mine = smem_addr(srow + stage_pad(trow));
+  unsigned base[CL];
+#pragma unroll
+  for (int c = 0; c < CL; ++c) {
+    asm("mapa.shared::cluster.u32 %0, %1, %2;\n"
+        : "=r"(base[c])
+        : "r"(mine), "r"(c));
+  }
+  int lo, hi;
+  block_span(VEC ? A / 4 : A, blockIdx.x, gridDim.x, lo, hi);
+  serve<VEC>(
+      idx + r * A, out + r * A, lo, hi, K,
+      [&] {
+        __syncthreads();
+        mbar_wait(bar, 0);
+        cluster.sync();  // every slice has arrived
+      },
+      [&](int j) {
+        int c = 0;
+#pragma unroll
+        for (int k = 1; k < CL; ++k) c += j >= k * S;
+        unsigned a = base[0];
+#pragma unroll
+        for (int k = 1; k < CL; ++k) a = c == k ? base[k] : a;
+        int v;
+        asm volatile("ld.shared::cluster.b32 %0, [%1];\n"
+                     : "=r"(v)
+                     : "r"(a + 4u * (unsigned)(j - c * S)));
+        return v;
+      });
+  cluster.sync();  // no block leaves while another reads its slice
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kL2Threads)
+row_gather_l2_kernel(const int32_t* __restrict__ table,
+                     const int32_t* __restrict__ idx,
+                     const int32_t* __restrict__ rows,
+                     int32_t* __restrict__ out, int G, int K, int A) {
+  const int w0 = (blockIdx.x * kL2Threads + threadIdx.x) * kL2Per;
+  if (w0 >= A) return;
+  const int64_t r = blockIdx.y;
+  const int32_t* trow = table + (int64_t)source_row(rows, (int)r, G) * K;
+  const int32_t* irow = idx + r * A + w0;
+  int32_t* orow = out + r * A + w0;
+  uint64_t keep, stream;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+      : "=l"(keep));
+  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+      : "=l"(stream));
+  const int n = min(kL2Per, A - w0);
+  int ix[kL2Per], v[kL2Per];
+  if (VEC && n == kL2Per) {
+#pragma unroll
+    for (int h = 0; h < kL2Per; h += 4) {
+      asm volatile(
+          "ld.global.L1::no_allocate.L2::cache_hint.v4.s32 {%0, %1, %2, %3},"
+          " [%4], %5;\n"
+          : "=r"(ix[h]), "=r"(ix[h + 1]), "=r"(ix[h + 2]), "=r"(ix[h + 3])
+          : "l"(irow + h), "l"(stream));
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kL2Per; ++k) ix[k] = k < n ? irow[k] : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < kL2Per; ++k) {
+    asm volatile("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;\n"
+                 : "=r"(v[k])
+                 : "l"(trow + clamp_row(ix[k], K)), "l"(keep));
+  }
+  if (VEC && n == kL2Per) {
+#pragma unroll
+    for (int h = 0; h < kL2Per; h += 4) {
+      asm volatile(
+          "st.global.L2::cache_hint.v4.s32 [%0], {%1, %2, %3, %4}, %5;\n" ::
+              "l"(orow + h),
+          "r"(v[h]), "r"(v[h + 1]), "r"(v[h + 2]), "r"(v[h + 3]),
+          "l"(stream)
+          : "memory");
+    }
+  } else {
+    for (int k = 0; k < n; ++k) orow[k] = v[k];
+  }
+}
+
+// --- K2, K4, K5 ---
 
 __global__ void zero_kernel(int32_t* __restrict__ out, int64_t n) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -139,16 +443,142 @@ __global__ void genome_map_gather_kernel(const int32_t* __restrict__ skid,
   out[r * P + p] = __ldg(jw + r * K + j);
 }
 
+// K1's launches.  Each body fills the card once: `blocks` is the number
+// of blocks that the SMs hold at a time, shared among the R rows.
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+int smem_bytes(int words) { return (16 + 4 * (words + 3) + 15) & ~15; }
+
+template <class Kern>
+cudaError_t allow_smem(Kern kern, int bytes, int& resident) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kern,
+                                                    kGatherThreads, bytes);
+  if (resident < 1) resident = 1;
+  return e;
+}
+
+// spans of a row: enough to fill the card, at least a thread's unit each
+int spans(int per_row_slots, int units) {
+  const int most = max(1, units / kGatherThreads);
+  return max(1, min(per_row_slots, most));
+}
+
+template <bool VEC>
+int gather_smem(const int32_t* table, const int32_t* idx,
+                const int32_t* rows, int32_t* out, int G, int R, int K,
+                int A, cudaStream_t st) {
+  const int bytes = smem_bytes(K);
+  static int set_bytes = -1, resident = 1;  // per instance
+  if (bytes != set_bytes) {
+    cudaError_t e =
+        allow_smem(row_gather_smem_kernel<VEC>, bytes, resident);
+    if (e != cudaSuccess) return (int)e;
+    set_bytes = bytes;
+  }
+  const int nb = spans((sm_count() * resident + R - 1) / R,
+                       VEC ? A / 4 : A);
+  row_gather_smem_kernel<VEC><<<dim3(nb, R), kGatherThreads, bytes, st>>>(
+      table, idx, rows, out, G, K, A);
+  return (int)cudaGetLastError();
+}
+
+template <int CL, bool VEC>
+int gather_cluster(const int32_t* table, const int32_t* idx,
+                   const int32_t* rows, int32_t* out, int G, int R, int K,
+                   int A, cudaStream_t st) {
+  const int S = ((K + CL - 1) / CL + 3) & ~3;
+  const int bytes = smem_bytes(S);
+  static int set_bytes = -1, resident = 1;  // per instance
+  if (bytes != set_bytes) {
+    cudaError_t e =
+        allow_smem(row_gather_cluster_kernel<CL, VEC>, bytes, resident);
+    if (e != cudaSuccess) return (int)e;
+    set_bytes = bytes;
+  }
+  const int nc = spans((sm_count() * resident / CL + R - 1) / R,
+                       (VEC ? A / 4 : A) / CL);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nc * CL, R);
+  cfg.blockDim = dim3(kGatherThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = st;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = CL;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, row_gather_cluster_kernel<CL, VEC>,
+                                     table, idx, rows, out, G, K, A, S);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int gather_l2(const int32_t* table, const int32_t* idx, const int32_t* rows,
+              int32_t* out, int G, int R, int K, int A, cudaStream_t st) {
+  const int per_block = kL2Threads * kL2Per;
+  row_gather_l2_kernel<VEC>
+      <<<dim3((A + per_block - 1) / per_block, R), kL2Threads, 0, st>>>(
+          table, idx, rows, out, G, K, A);
+  return (int)cudaGetLastError();
+}
+
+template <bool VEC>
+int gather_body(int body, const int32_t* table, const int32_t* idx,
+                const int32_t* rows, int32_t* out, int G, int R, int K,
+                int A, cudaStream_t st) {
+  const int cl = (K + kRowSmemWords - 1) / kRowSmemWords;
+  switch (body) {
+    case 0:
+      if (K > kRowSmemWords) break;
+      return gather_smem<VEC>(table, idx, rows, out, G, R, K, A, st);
+    case 1:
+      if (cl == 2)
+        return gather_cluster<2, VEC>(table, idx, rows, out, G, R, K, A, st);
+      if (cl == 3)
+        return gather_cluster<3, VEC>(table, idx, rows, out, G, R, K, A, st);
+      if (cl == 4)
+        return gather_cluster<4, VEC>(table, idx, rows, out, G, R, K, A, st);
+      break;
+    case 2:
+      return gather_l2<VEC>(table, idx, rows, out, G, R, K, A, st);
+  }
+  return (int)cudaErrorInvalidValue;  // the body cannot take this width
+}
+
 }  // namespace
 
-extern "C" int skt_row_gather(const void* table, const void* idx, void* out,
-                              int R, int K, int A, void* stream) {
-  if (R > 0 && A > 0) {
-    dim3 grid((A + kThreads - 1) / kThreads, R);
-    row_gather_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)table, (const int32_t*)idx, (int32_t*)out, K, A);
-  }
-  return (int)cudaGetLastError();
+// body: 0 smem (K <= kRowSmemWords), 1 cluster (2-4 slices of at most
+// kRowSmemWords), 2 L2 (any K); kernels/gather.py row_gather_body picks it
+// from K.  rows: int32 (R,) or null for the identity (then G == R).
+extern "C" int skt_row_gather(const void* table, const void* idx,
+                              const void* rows, void* out, int G, int R,
+                              int K, int A, int body, void* stream) {
+  if (R <= 0 || A <= 0) return (int)cudaGetLastError();
+  if (K < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  // int4 index loads and output stores need every row 16-byte aligned
+  const bool vec = A % 4 == 0 && ((uintptr_t)idx & 15) == 0
+      && ((uintptr_t)out & 15) == 0;
+  const auto t = (const int32_t*)table;
+  const auto i = (const int32_t*)idx;
+  const auto m = (const int32_t*)rows;
+  const auto o = (int32_t*)out;
+  const auto st = (cudaStream_t)stream;
+  return vec ? gather_body<true>(body, t, i, m, o, G, R, K, A, st)
+             : gather_body<false>(body, t, i, m, o, G, R, K, A, st);
 }
 
 extern "C" int skt_row_scatter_multi(const void* idx, const void* vals,

@@ -38,7 +38,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of every entry point (pointers and the stream as void*)
 _SIGNATURES = {
-    "skt_row_gather": [_P, _P, _P, _I, _I, _I, _P],
+    "skt_row_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "skt_row_scatter_multi": [_P, _P, _P, _I, _I, _I, _I, _P],
     "skt_windowed_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "skt_genome_map_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -49,7 +49,7 @@ _SIGNATURES = {
     "skt_dp_chain": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                      _I, _I, _P],
     "skt_dp_chain_packed": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _P],
+                            _I, _P],
     "skt_expand_anchors": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 

@@ -180,10 +180,11 @@ def _chk(*xs):
     return torch.stack([x.to(_I32).sum(dtype=_I32) for x in xs])
 
 
-def _join_kmer_axis(db, a_idx, b_idx, join_mode, band, stage, P):
+def _join_kmer_axis(db, a_idx, b_idx, b_rows, join_mode, band, stage, P):
     """The two kmer-axis joins.  Returns (hit, b_cnt_hit, b_start_hit,
     pair_ok, join_ovf), each (R, K) but the per-row flag, or a checksum at
-    an early `stage`."""
+    an early `stage`.  b_rows: the ref rows as int32 (R,), for the row
+    gathers that read a database table by genome id."""
     R = a_idx.shape[0]
     K = db["kmers"].shape[1]
     a_cnt = db["counts"][a_idx]
@@ -198,9 +199,8 @@ def _join_kmer_axis(db, a_idx, b_idx, join_mode, band, stage, P):
             return _chk(gid_a)
         valid_k = gid_a >= 0
         U = db["dense_cs"].shape[1]
-        dcs_b = db["dense_cs"][b_idx]                 # (R, U)
         if stage == 22:  # join: + ref-side dense table row gather
-            return _chk(dcs_b)
+            return _chk(db["dense_cs"][b_idx])
         if windowed_gather_ok(U, K):
             # gid is ASCENDING per row (ranks of the sorted kmer table),
             # so the union-axis gather takes the windowed kernel.  Padding
@@ -209,9 +209,10 @@ def _join_kmer_axis(db, a_idx, b_idx, join_mode, band, stage, P):
             # path
             gmax = gid_a.max(dim=1, keepdim=True).values
             idx_sorted = torch.where(valid_k, gid_a, gmax).clamp_min(0)
-            csb, join_ovf = windowed_sorted_gather(dcs_b, idx_sorted)
+            csb, join_ovf = windowed_sorted_gather(db["dense_cs"][b_idx],
+                                                   idx_sorted)
         else:
-            csb = row_gather(dcs_b, gid_a.clamp_min(0))
+            csb = row_gather(db["dense_cs"], gid_a.clamp_min(0), b_rows)
         if stage == 23:  # join: + union-axis gather
             return _chk(csb, join_ovf)
         hit = valid_k & (csb != 0)
@@ -232,34 +233,35 @@ def _join_kmer_axis(db, a_idx, b_idx, join_mode, band, stage, P):
         idx = torch.searchsorted(bk_i ^ sign, ak_i ^ sign, out_int32=True)
         idx = idx.clamp_max(K - 1)
         a_valid = ak_i != -1
-        hit = (row_gather(bk_i, idx) == ak_i) & a_valid
-        b_cnt = db["counts"][b_idx]
-        b_start = db["starts"][b_idx]
+        hit = (row_gather(km, idx, b_rows) == ak_i) & a_valid
         if P < (1 << 17):
             # pack (count, start) so the join needs two gathers, not three
             # (count clipped to 4095: only compared against band < 4096)
-            cs = row_gather((b_cnt.clamp_max(4095) << 17) | b_start, idx)
+            cs = row_gather((db["counts"][b_idx].clamp_max(4095) << 17)
+                            | db["starts"][b_idx], idx)
             b_cnt_hit = torch.where(hit, cs >> 17, 0)
             b_start_hit = torch.where(hit, cs & ((1 << 17) - 1), 0)
         else:
-            b_cnt_hit = torch.where(hit, row_gather(b_cnt, idx), 0)
-            b_start_hit = torch.where(hit, row_gather(b_start, idx), 0)
+            b_cnt_hit = torch.where(
+                hit, row_gather(db["counts"], idx, b_rows), 0)
+            b_start_hit = torch.where(
+                hit, row_gather(db["starts"], idx, b_rows), 0)
         a_ok = (a_cnt <= band) & a_valid
     pair_ok = hit & a_ok & (b_cnt_hit <= band)
     return hit, b_cnt_hit, b_start_hit, pair_ok, join_ovf
 
 
-def _expand_legacy(db, a_idx, b_idx, joined, A, P, slots, stage):
+def _expand_legacy(db, a_idx, ab_rows, joined, A, P, slots, stage):
     """The legacy generator: anchor expansion in KMER order, then the
     reference's Anchor sort (reference: src/types.rs:499-506 Ord) on five
-    keys.  Returns (qc, qp, rc, rp, rev, anchor_valid, total), or a
-    checksum at stage 3 or 4."""
+    keys.  ab_rows: the query and ref rows as int32 (R,).  Returns (qc,
+    qp, rc, rp, rev, anchor_valid, total), or a checksum at stage 3 or
+    4."""
     _hit, b_cnt_hit, b_start_hit, pair_ok, _ovf = joined
     R, K = b_cnt_hit.shape
     dev = a_idx.device
-    a_cnt = db["counts"][a_idx]
-    a_start = db["starts"][a_idx]
-    pair_counts = torch.where(pair_ok, a_cnt * b_cnt_hit, 0)
+    a_rows, b_rows = ab_rows
+    pair_counts = torch.where(pair_ok, db["counts"][a_idx] * b_cnt_hit, 0)
     offs = torch.cumsum(pair_counts, dim=1, dtype=_I32) - pair_counts
     total = offs[:, -1] + pair_counts[:, -1]
     kcols = torch.arange(K, dtype=_I32, device=dev)[None, :].expand(R, K)
@@ -280,21 +282,21 @@ def _expand_legacy(db, a_idx, b_idx, joined, A, P, slots, stage):
     rank = slots - (oc >> 12)
     bc = torch.clamp_min(oc & 4095, 1)
     if P <= 65536:
-        ab = row_gather((a_start << 16) | b_start_hit, g)
+        ab = row_gather((db["starts"][a_idx] << 16) | b_start_hit, g)
         a_start_g = (ab >> 16) & 0xFFFF
         b_start_g = ab & 0xFFFF
     else:
-        a_start_g = row_gather(a_start, g)
+        a_start_g = row_gather(db["starts"], g, a_rows)
         b_start_g = row_gather(b_start_hit, g)
     arow = torch.clamp(
         a_start_g + torch.div(rank, bc, rounding_mode="floor"), 0, P - 1)
     brow = torch.clamp(b_start_g + torch.remainder(rank, bc), 0, P - 1)
-    qp = torch.where(anchor_valid, row_gather(db["pos"][a_idx], arow),
+    qp = torch.where(anchor_valid, row_gather(db["pos"], arow, a_rows),
                      I32MAX)
-    qcc = row_gather(db["ctgc"][a_idx], arow)
-    rp = torch.where(anchor_valid, row_gather(db["pos"][b_idx], brow),
+    qcc = row_gather(db["ctgc"], arow, a_rows)
+    rp = torch.where(anchor_valid, row_gather(db["pos"], brow, b_rows),
                      I32MAX)
-    rcc = row_gather(db["ctgc"][b_idx], brow)
+    rcc = row_gather(db["ctgc"], brow, b_rows)
     qc = torch.where(anchor_valid, qcc >> 1, I32MAX)
     rc = torch.where(anchor_valid, rcc >> 1, I32MAX)
     rev = ((qcc & 1) != (rcc & 1)) & anchor_valid
@@ -354,6 +356,10 @@ def phase_a(db, ab_idx, A: int, I_CAP: int, C_CAP: int, L_CAP: int,
     if band >= 4096:
         raise ValueError("band must be < 4096")
     a_idx, b_idx = ab_idx[0].long(), ab_idx[1].long()
+    # the same rows as int32, for the row gathers that read a database
+    # table by genome id (no per-batch copy of the rows)
+    a_rows, b_rows = (ab_idx[0].to(_I32).contiguous(),
+                      ab_idx[1].to(_I32).contiguous())
     R = a_idx.shape[0]
     P = (db["apk"] if packed_db else db["pos"]).shape[1]
     if expand_kernel and not (packed_db and expand_ok(P, A)):
@@ -372,15 +378,15 @@ def phase_a(db, ab_idx, A: int, I_CAP: int, C_CAP: int, L_CAP: int,
         # gidp (-1), matching the engine's band check at dispatch.
         join_ovf = torch.zeros((R,), dtype=torch.bool, device=dev)
         gidp_a = db["gidp"][a_idx]                          # (R, P)
-        csb_p = row_gather(db["dense_cs"][b_idx], gidp_a.clamp_min(0))
+        csb_p = row_gather(db["dense_cs"], gidp_a.clamp_min(0), b_rows)
         okp = (gidp_a >= 0) & (csb_p != 0) & ((csb_p >> 17) <= band)
         cnt_p = torch.where(okp, csb_p >> 17, 0)
         bs_p = torch.where(okp, csb_p & ((1 << 17) - 1), 0)
         if stage == 1:   # join only
             return _chk(okp, cnt_p, bs_p)
     else:
-        joined = _join_kmer_axis(db, a_idx, b_idx, join_mode, band, stage,
-                                 P)
+        joined = _join_kmer_axis(db, a_idx, b_idx, b_rows, join_mode, band,
+                                 stage, P)
         if not isinstance(joined, tuple):
             return joined
         hit, b_cnt_hit, b_start_hit, pair_ok, join_ovf = joined
@@ -388,7 +394,8 @@ def phase_a(db, ab_idx, A: int, I_CAP: int, C_CAP: int, L_CAP: int,
             return _chk(hit, b_cnt_hit, b_start_hit, pair_ok)
 
     if gen_mode == "legacy":
-        gen = _expand_legacy(db, a_idx, b_idx, joined, A, P, slots, stage)
+        gen = _expand_legacy(db, a_idx, (a_rows, b_rows), joined, A, P,
+                             slots, stage)
         if not isinstance(gen, tuple):
             return gen
         qc, qp, rc, rp, rev, anchor_valid, total = gen
@@ -434,7 +441,8 @@ def phase_a(db, ab_idx, A: int, I_CAP: int, C_CAP: int, L_CAP: int,
             aw, brow_k, ovf_k = expand_anchors(
                 offs_p, bs_p, db["apk"][a_idx], total.contiguous(), A)
             expand_ovf = ovf_k > 0
-            bw = row_gather(db["bpk"][b_idx], torch.clamp(brow_k, 0, P - 1))
+            bw = row_gather(db["bpk"], torch.clamp(brow_k, 0, P - 1),
+                            b_rows)
             qp_r = aw & 0xFFFFFF
             qcc = (aw >> 24) & 0xFF
             rp_r = bw & 0xFFFFFF
@@ -495,10 +503,10 @@ def phase_a(db, ab_idx, A: int, I_CAP: int, C_CAP: int, L_CAP: int,
                 return _chk(g, bs, brow)
             if not packed_db:
                 # unpacked tables: two gathers per side
-                qp_r = row_gather(db["spos"][a_idx], g)
-                qcc = row_gather(db["sctgc"][a_idx], g)
-                rp_r = row_gather(db["pos"][b_idx], brow)
-                rcc = row_gather(db["ctgc"][b_idx], brow)
+                qp_r = row_gather(db["spos"], g, a_rows)
+                qcc = row_gather(db["sctgc"], g, a_rows)
+                rp_r = row_gather(db["pos"], brow, b_rows)
+                rcc = row_gather(db["ctgc"], brow, b_rows)
             else:
                 if aw_fill is not None:
                     # fused query side: forward-fill the scattered
@@ -514,18 +522,18 @@ def phase_a(db, ab_idx, A: int, I_CAP: int, C_CAP: int, L_CAP: int,
                     # when the shapes allow.  Sparse-hit pairs whose
                     # 1024-anchor tile spans more than the window set the
                     # per-row overflow and take the exact native fallback
-                    apk_a = db["apk"][a_idx]
                     if windowed_gather_ok(P, A):
-                        aw, apk_ovf = windowed_sorted_gather(apk_a, g)
+                        aw, apk_ovf = windowed_sorted_gather(
+                            db["apk"][a_idx], g)
                         join_ovf = join_ovf | apk_ovf
                     else:
-                        aw = row_gather(apk_a, g)
+                        aw = row_gather(db["apk"], g, a_rows)
                     if stage == 33:  # expansion: + query-side gather
                         return _chk(aw)
                     qp_r = aw & 0xFFFFFF
                     qcc = (aw >> 24) & 0xFF
                 # ref side: ONE gather, positions pre-packed ctgc<<24 | pos
-                bw = row_gather(db["bpk"][b_idx], brow)
+                bw = row_gather(db["bpk"], brow, b_rows)
                 if stage == 34:  # expansion: + ref-side gather
                     return _chk(bw)
                 rp_r = bw & 0xFFFFFF

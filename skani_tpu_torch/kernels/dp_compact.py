@@ -71,8 +71,9 @@ def ring_size(band: int) -> int:
 
 def ring_regs(band: int) -> int:
     """Registers of ring slots a thread of the wide kernels
-    (dp_chain_compact_wide, dp_pallas.dp_chain): ceil(band / 32), so the
-    32 * NREG slots cover the band window; 1 to 8."""
+    (dp_chain_compact_wide, dp_pallas.dp_chain and dp_chain_packed):
+    ceil(band / 32), so the 32 * NREG slots cover the band window; 1 to
+    8."""
     return min(max((band + 31) // 32, 1), 8)
 
 

@@ -34,8 +34,8 @@ XLA's does (differences of I32MAX padding wrap).
 Two implementations with identical outputs: the plain versions (a Python
 loop over t on (RING, RC) ring tensors) and the CUDA kernels in
 csrc/dp_padded.cu (a warp per lane, 8 lanes a block, 32-row tiles through
-shared memory; dp_chain steps only valid anchors, holds a ring of
-ceil(band / 32) registers a thread and copies the next tile with
+shared memory; both step only valid anchors, hold a ring of ceil(band /
+32) registers a thread (dp_compact.ring_regs) and copy the next tile with
 cp.async).  A CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.
 """
@@ -183,13 +183,12 @@ def _launch(name, planes, n_out, band, pcl, max_gap, anchor_score, bits):
         raise ValueError(f"{name}: unsupported shape ({L}, {RC})")
     outs = [torch.empty((L, RC), dtype=torch.int32, device=dev)
             for _ in range(n_out)]
-    # dp_chain's ring registers
-    nreg = (ring_regs(band),) if len(planes) == 3 else ()
     lib = _build.lib()
     _build.check(getattr(lib, "skt_" + name)(
         *(p.data_ptr() for p in planes), *(o.data_ptr() for o in outs),
         L, RC, int(band), int(pcl), int(max_gap), int(anchor_score),
-        int(bits), RING, int(np.log2(RING)), *nreg, _build.stream_ptr(dev)),
+        int(bits), RING, int(np.log2(RING)), ring_regs(band),
+        _build.stream_ptr(dev)),
         name)
     LAUNCHES[name] += 1
     return outs

@@ -3,8 +3,11 @@ and fill).
 
 Each kernel has its plain PyTorch version beside it:
 
-* `row_gather(table, idx)` -> out[r, a] = table[r, idx[r, a]].
-  Replaces skani_tpu/kernels/gather_pallas.py mxu_row_gather.
+* `row_gather(table, idx, rows=None)` -> out[r, a] = table[rows[r],
+  idx[r, a]] (rows the identity when None), so that a caller gathers from
+  a device table by genome id without copying the batch's rows first.
+  Replaces skani_tpu/kernels/gather_pallas.py mxu_row_gather, whose table
+  is the copy table[rows].
 * `windowed_sorted_gather(table, idx, WB)` -> (out, ovf): the same gather
   for per-row nondecreasing idx, from a window of WB * 128 words placed per
   1024-index tile; an index outside its tile's window reads 0 and raises
@@ -25,8 +28,11 @@ The TPU kernels build one-hot byte-plane matrix products because that
 chip has no fast gather; their shape predicates, plane choices and VMEM
 sizing exist only for that reason and do not carry over.  On the card all
 are memory-bound kernels (csrc/gather.cu): coalesced index and output
-streams, row-local table reads that stay in L2 (and, for the windowed
-gather's ascending indices, coalesce).
+streams, row-local table reads (for the windowed gather's ascending
+indices, coalesced).  row_gather stages its table row on chip where it
+fits: in one block's shared memory (`row_gather_body` "smem", rows of at
+most ROW_SMEM_WORDS words), split over a cluster of up to ROW_CLUSTER_MAX
+blocks ("cluster"), else it reads the row through L2 ("l2").
 
 Dispatch rule: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises.  There is no fallback from one to the other.
@@ -55,37 +61,72 @@ def _check_i32(name, *ts):
             raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def row_gather_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain version: torch.gather along the row, indices clamped to the
-    row like the kernel's."""
+#: the widest row (int32 words) that one block stages in its 227 KB of
+#: shared memory (less the mbarrier and a pad of up to 3 words), and the
+#: most blocks of a cluster that split a wider row between them
+ROW_SMEM_WORDS = 58104
+ROW_CLUSTER_MAX = 4
+_BODY_CODE = {"smem": 0, "cluster": 1, "l2": 2}
+
+
+def row_gather_body(K: int) -> str:
+    """The body of the row_gather kernel that takes rows of K words: the
+    table width alone decides it."""
+    if K <= ROW_SMEM_WORDS:
+        return "smem"
+    if K <= ROW_CLUSTER_MAX * ROW_SMEM_WORDS:
+        return "cluster"
+    return "l2"
+
+
+def row_gather_plain(table: torch.Tensor, idx: torch.Tensor,
+                     rows=None) -> torch.Tensor:
+    """Plain version: the rows' copy table[rows], then torch.gather along
+    the row, indices clamped to the row like the kernel's."""
+    if rows is not None:
+        table = table[rows.clamp(0, table.shape[0] - 1).long()]
     K = table.shape[1]
     return torch.gather(table, 1, idx.clamp(0, K - 1).long())
 
 
-def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[r, a] = table[r, clamp(idx[r, a], 0, K - 1)] for int32 (R, K)
-    table and int32 (R, A) idx.  Callers clip indices into range, as the
-    TPU kernel required; the clamp only guarantees that no read leaves
-    the row."""
-    if table.dim() != 2 or idx.dim() != 2 \
-            or table.shape[0] != idx.shape[0]:
+def row_gather(table: torch.Tensor, idx: torch.Tensor, rows=None,
+               body=None) -> torch.Tensor:
+    """out[r, a] = table[rows[r], clamp(idx[r, a], 0, K - 1)] for an int32
+    (G, K) table, int32 (R, A) idx and int32 (R,) rows, each row id
+    clamped into [0, G); without rows, table is (R, K) and row r reads
+    table row r.  Callers clip indices into range, as the TPU kernel
+    required; the clamps only guarantee that no read leaves the table.
+    `body` forces one of the kernel's bodies that can take K (for
+    measurement); by default row_gather_body(K) picks it."""
+    if table.dim() != 2 or idx.dim() != 2:
         raise ValueError(f"row_gather: bad shapes {tuple(table.shape)}, "
                          f"{tuple(idx.shape)}")
-    if table.device.type == "cpu" and idx.device.type == "cpu":
-        return row_gather_plain(table, idx)
-    if table.device.type != "cuda" or idx.device != table.device:
-        raise RuntimeError("row_gather: tensors must both lie on one CUDA "
-                           "device or both on the CPU")
-    _check_i32("row_gather", table, idx)
-    R, K = table.shape
+    R = idx.shape[0]
+    if rows is None and table.shape[0] != R \
+            or rows is not None and tuple(rows.shape) != (R,):
+        raise ValueError(f"row_gather: bad shapes {tuple(table.shape)}, "
+                         f"{tuple(idx.shape)}, rows "
+                         f"{None if rows is None else tuple(rows.shape)}")
+    ts = [table, idx] + ([] if rows is None else [rows])
+    if all(t.device.type == "cpu" for t in ts):
+        return row_gather_plain(table, idx, rows)
+    if table.device.type != "cuda" or any(t.device != table.device
+                                          for t in ts):
+        raise RuntimeError("row_gather: tensors must all lie on one CUDA "
+                           "device or all on the CPU")
+    _check_i32("row_gather", *ts)
+    G, K = table.shape
     A = idx.shape[1]
-    if R > 65535 or K < 1:
-        raise ValueError(f"row_gather: unsupported shape R={R}, K={K}")
+    body = row_gather_body(K) if body is None else body
+    if R > 65535 or K < 1 or G < 1 or body not in _BODY_CODE:
+        raise ValueError(f"row_gather: unsupported shape R={R}, G={G}, "
+                         f"K={K} or body {body!r}")
     out = torch.empty((R, A), dtype=torch.int32, device=table.device)
     lib = _build.lib()
     _build.check(lib.skt_row_gather(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, K, A,
-        _build.stream_ptr(table.device)), "row_gather")
+        table.data_ptr(), idx.data_ptr(),
+        None if rows is None else rows.data_ptr(), out.data_ptr(), G, R, K,
+        A, _BODY_CODE[body], _build.stream_ptr(table.device)), "row_gather")
     LAUNCHES["row_gather"] += 1
     return out
 

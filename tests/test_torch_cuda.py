@@ -44,6 +44,59 @@ def test_row_gather_kernel_matches_plain(dev):
     assert torch.equal(got, gather.row_gather_plain(table, idx))
 
 
+# (G, R, K, A, rows): a row each body stages (smem: <= 58104 words,
+# cluster: 2-4 slices, the widest of 3 and 4 slices exactly full, l2:
+# wider), with and without the row map, R > G with repeated rows, index
+# widths A % 4 != 0 and odd K (rows that start off a 16-byte boundary)
+_ROW_MAP = [
+    (40, 33, 40960, 47104, True), (33, 33, 40960, 47104, False),
+    (20, 33, 98304, 40960, True), (33, 33, 98304, 40960, False),
+    (5, 7, 300001, 20000, True), (7, 7, 262144, 8192, False),
+    (9, 11, 5001, 4097, True), (6, 13, 70001, 1023, True),
+    (3, 5, 250001, 999, True), (2, 3, 5, 7, True),
+    (4, 4, 174312, 4096, True), (3, 6, 232416, 4096, True)]
+
+
+@pytest.mark.parametrize("G,R,K,A,use_rows", _ROW_MAP)
+def test_row_gather_kernel_row_map_bodies(dev, G, R, K, A, use_rows):
+    """Every body that can take the width (the shape's own and the L2
+    body), exact against the plain version, one launch a call."""
+    rng = np.random.default_rng(G * 7 + K + A)
+    table = torch.from_numpy(synth.adversarial_words(rng, (G, K))).to(dev)
+    idx_np = rng.integers(0, K, size=(R, A)).astype(np.int32)
+    idx_np[:, :min(A, 8)] = np.array(
+        [0, 1, 127, 128, K - 2, K - 1, -5, K + 7], np.int32)[:min(A, 8)]
+    idx = torch.from_numpy(idx_np).to(dev)
+    rows = None
+    if use_rows:
+        r_np = rng.integers(0, G, size=R).astype(np.int32)
+        r_np[:3] = [0, G - 1, 0]
+        rows = torch.from_numpy(r_np).to(dev)
+    want = gather.row_gather_plain(table, idx, rows)
+    own = gather.row_gather_body(K)
+    for body in sorted({own, "l2"}):
+        n0 = gather.LAUNCHES["row_gather"]
+        got = gather.row_gather(table, idx, rows,
+                                body=None if body == own else body)
+        torch.cuda.synchronize()
+        assert gather.LAUNCHES["row_gather"] == n0 + 1
+        assert torch.equal(got, want), body
+
+
+def test_row_gather_kernel_row_map_clamps_rows(dev):
+    rng = np.random.default_rng(17)
+    table = torch.from_numpy(synth.adversarial_words(rng, (6, 4096))).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 4096, (4, 4096))
+                           .astype(np.int32)).to(dev)
+    rows = torch.tensor([-3, 6, 100, 2], dtype=torch.int32, device=dev)
+    got = gather.row_gather(table, idx, rows)
+    want = gather.row_gather(table, idx,
+                             torch.tensor([0, 5, 5, 2], dtype=torch.int32,
+                                          device=dev))
+    assert torch.equal(got, want)
+    assert torch.equal(got, gather.row_gather_plain(table, idx, rows))
+
+
 def test_row_scatter_multi_kernel_matches_plain(dev):
     rng = np.random.default_rng(8)
     R, P, K = 33, 40960, 47104
@@ -252,6 +305,24 @@ def test_dp_chain_packed_kernel_matches_plain(dev, band, L, RC):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert int(((got >> E) & ((1 << E) - 1)).max()) > 3
+
+
+@pytest.mark.parametrize("band", [12, 20, 31, 32, 64, 83, 125, 200])
+def test_dp_chain_packed_kernel_bands(dev, band):
+    """The bands of the schedule test (tests/test_torch_dp_schedule.py):
+    1 to 7 ring registers, band = 32 * NREG at 32 and 64."""
+    L, RC = 256, 203
+    rng = np.random.default_rng(band * 7 + 3)
+    ins = _dev(synth.padded_dp_case(rng, L, RC, packed=True), dev)
+    E = int(np.ceil(np.log2(L)))
+    n0 = dp_pallas.LAUNCHES["dp_chain_packed"]
+    got = dp_pallas.dp_chain_packed(*ins, band, 2500, 300, 20, E)
+    assert dp_pallas.LAUNCHES["dp_chain_packed"] == n0 + 1
+    want = dp_pallas.dp_chain_packed_plain(*ins, band, 2500, 300, 20, E)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(((got >> E) & ((1 << E) - 1)).max()) > 3
+    assert int(got[:, 0].max()) == L - 1 and int((got[:, 0] >> E).max()) == 0
 
 
 def test_padded_dp_refuses_wide_rings_on_the_card(dev):

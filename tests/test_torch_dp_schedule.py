@@ -1,6 +1,6 @@
 """The schedules of the Hopper kernels for dp_chain_compact (K3),
-dp_chain_compact_wide (K8) and dp_chain (K10), emulated in numpy on the CPU
-and held bit for bit, on every column, against the plain versions and the
+dp_chain_compact_wide (K8), dp_chain (K10) and dp_chain_packed (K9),
+emulated in numpy on the CPU and held bit for bit, on every column, against the plain versions and the
 JAX package's kernels (Pallas in interpret mode, and the lax.scan reference
 of the padded DP).
 
@@ -26,8 +26,10 @@ The K3 emulation follows csrc/dp_compact.cu dp_compact_kernel lane by lane
     running best per age of a group of four) does not change the winner:
     comb mod RING = RING - k is unique among a column's candidates.
 
-The K8 and K10 emulations follow csrc/dp_compact.cu dp_wide_kernel and
-csrc/dp_padded.cu dp_chain_kernel lane by lane (vectorised over lanes):
+The K8, K10 and K9 emulations follow csrc/dp_compact.cu dp_wide_kernel
+and csrc/dp_padded.cu dp_chain_kernel and dp_chain_packed_kernel lane by
+lane (vectorised over lanes; K9 is K10's schedule under the packed layout
+policy):
 
   * the halo look-ahead: a compact lane stops after the last halo column
     whose col_in_chunk exceeds its offset;
@@ -52,7 +54,8 @@ import jax.numpy as jnp
 from skani_tpu.kernels.dp_compact import dp_chain_compact as jax_dp
 from skani_tpu.kernels.dp_compact import \
     dp_chain_compact_wide as jax_dp_wide
-from skani_tpu.kernels.dp_pallas import _dp_pallas, _dp_scan
+from skani_tpu.kernels.dp_pallas import (_dp_pallas, _dp_pallas_packed,
+                                         _dp_scan, _dp_scan_packed)
 from skani_tpu_torch import synth
 from skani_tpu_torch.kernels import dp_compact, dp_pallas
 from skani_tpu_torch.kernels.dp_compact import (CID_MASK, NEGI, QP_MASK,
@@ -347,9 +350,20 @@ def emulate_compact_wide(w1, w2, w3, cic, band, pcl, max_gap, anchor_score,
     return score, dr, stats
 
 
-def emulate_chain(qp, rp, rcv, band, pcl, max_gap, anchor_score):
-    """dp_chain_kernel's schedule: returns (dd, root, stats)."""
-    L, RC = qp.shape
+def emulate_chain(planes, band, pcl, max_gap, anchor_score, ebits=None):
+    """The padded DP kernels' schedule: dp_chain_kernel's on three planes
+    (qp, rp, rcv), returning (dd, root, stats), or with `ebits`
+    dp_chain_packed_kernel's on two (qprv, rprc), returning (ddr, stats).
+
+    The layout policies (csrc/dp_padded.cu Padded and Packed):
+      * unpacked: a = qp, b = rp, c = rcv; valid = c & 1; rev = c & 2;
+        same = c_j == c_i; an emptied slot clears c; root and depth apart;
+      * packed: a = qprv, b = rprc, no c; qp = a >> 2; valid = a & 1; rev
+        = a & 2; same = ((a_i ^ a_j) & 3) == 0; an emptied slot clears a;
+        one payload word depth << EBITS | root, one hop deeper by adding
+        1 << EBITS."""
+    packed = ebits is not None
+    L, RC = planes[0].shape
     RING = ring_size(band)
     shift = int(np.log2(RING))
     bits = dp_pallas.dbits(L)
@@ -357,9 +371,10 @@ def emulate_chain(qp, rp, rcv, band, pcl, max_gap, anchor_score):
     Lpad = (L + 31) // 32 * 32
     # lane-major, zero rows past L (the asynchronous copy's zero fill)
     pad = lambda x: np.concatenate([x.T, np.zeros((RC, Lpad - L), I32)], 1)
-    mq, mr, mc = pad(qp), pad(rp), pad(rcv)
+    ma, mb = pad(planes[0]), pad(planes[1])
+    mc = np.zeros_like(ma) if packed else pad(planes[2])
     z = lambda: np.zeros((RC, nreg, 32), I32)
-    kqp, krp, krc, kpj, kroot, kdep = z(), z(), z(), z(), z(), z()
+    ka, kb, kc, kpj, kroot, kdep = z(), z(), z(), z(), z(), z()
     lim_q = I32(min(pcl, DMAX))
     nring = I32(-RING)
     u0 = I32(np.int64((anchor_score + 1) * RING).astype(I32))
@@ -371,30 +386,37 @@ def emulate_chain(qp, rp, rcv, band, pcl, max_gap, anchor_score):
         K = (t0 // 32) % nreg
         kage = _ages(RC, nreg, K)
         nsteps = min(32, L - t0)
-        ac, bc, cc = (m[:, t0:t0 + 32] for m in (mq, mr, mc))
-        mine_valid = (cc & 1) != 0
+        ac, bc, cc = (m[:, t0:t0 + 32] for m in (ma, mb, mc))
+        mine_valid = ((ac if packed else cc) & 1) != 0
         todo = (LID[None, :] < nsteps) & mine_valid
         stats["tiles_stepped"] += int(todo.any(1).sum())
         stats["tiles_skipped"] += int((~todo.any(1)).sum())
-        out_a = np.zeros((RC, 32), I32)
         out_b = np.broadcast_to(I32(t0) + LID, (RC, 32)).copy()
+        # a step that does not run: dp 0 (and depth 0), root t
+        out_a = out_b.copy() if packed else np.zeros((RC, 32), I32)
         for j in range(nsteps):
             idx = np.nonzero(todo[:, j])[0]
             if idx.size == 0:
                 continue
             stats["anchor_steps"][idx] += 1
             inv = ~mine_valid[idx] & (LID[None, :] < j)
-            krc[idx, K] = np.where(inv, I32(0), krc[idx, K])
+            clr = ka if packed else kc
+            clr[idx, K] = np.where(inv, I32(0), clr[idx, K])
             a_i, b_i, c_i = (c[idx, j][:, None, None] for c in (ac, bc, cc))
-            rev = (c_i & 2) != 0
+            rev = ((a_i if packed else c_i) & 2) != 0
             sgn = np.where(rev, I32(1), I32(-1))
             off = np.where(rev, ~b_i, b_i - I32(1))
-            q, r_, c_, pj, rt, dp_, age = (x[idx] for x in (
-                kqp, krp, krc, kpj, kroot, kdep, kage))
-            d_q = a_i - q
-            d_r1 = r_ * sgn + off
+            a_, b_, c_, pj, rt, dp_, age = (x[idx] for x in (
+                ka, kb, kc, kpj, kroot, kdep, kage))
+            if packed:
+                d_q = (a_i >> I32(2)) - (a_ >> I32(2))
+                same = ((a_i ^ a_) & I32(3)) == 0
+            else:
+                d_q = a_i - a_
+                same = c_ == c_i
+            d_r1 = b_ * sgn + off
             gap = np.abs(d_q - d_r1 - I32(1))
-            ok = (c_ == c_i) & (d_q <= lim_q) & (d_q != 0) \
+            ok = same & (d_q <= lim_q) & (d_q != 0) \
                 & (d_r1.view(np.uint32) < DMAX) & (gap <= I32(max_gap)) \
                 & (age <= I32(band - j))
             comb = gap * nring + pj - age + (u0 - I32(j))
@@ -402,18 +424,28 @@ def emulate_chain(qp, rp, rcv, band, pcl, max_gap, anchor_score):
             stats["ties"] += int((ties & take).sum())
             sel = lambda x: x.reshape(idx.size, -1)[np.arange(idx.size), win]
             dp_t = np.where(take, best_val, I32(0))
-            root_t = np.where(take, sel(rt), I32(t0 + j))
-            dep_t = np.where(take, sel(dp_) + I32(1), I32(0))
-            out_a[idx, j] = (dp_t << I32(bits)) | dep_t
-            out_b[idx, j] = root_t
-            kqp[idx, K, j], krp[idx, K, j], krc[idx, K, j] = \
+            if packed:
+                # kroot holds the payload word; kdep stays unused
+                pay_t = np.where(take, sel(rt) + I32(1 << ebits),
+                                 I32(t0 + j))
+                out_a[idx, j] = (dp_t << I32(2 * ebits)) | pay_t
+                kroot[idx, K, j] = pay_t
+            else:
+                root_t = np.where(take, sel(rt), I32(t0 + j))
+                dep_t = np.where(take, sel(dp_) + I32(1), I32(0))
+                out_a[idx, j] = (dp_t << I32(bits)) | dep_t
+                out_b[idx, j] = root_t
+                kroot[idx, K, j], kdep[idx, K, j] = root_t, dep_t
+            ka[idx, K, j], kb[idx, K, j], kc[idx, K, j] = \
                 ac[idx, j], bc[idx, j], cc[idx, j]
             kpj[idx, K, j] = dp_t * I32(RING)
-            kroot[idx, K, j], kdep[idx, K, j] = root_t, dep_t
             kage[idx, K, j] = -j
-        krc[:, K] = np.where(~mine_valid, I32(0), krc[:, K])
+        clr = ka if packed else kc
+        clr[:, K] = np.where(~mine_valid, I32(0), clr[:, K])
         dd[t0:t0 + 32] = out_a.T
         root[t0:t0 + 32] = out_b.T
+    if packed:
+        return dd[:L], stats
     return dd[:L], root[:L], stats
 
 
@@ -603,7 +635,7 @@ def test_chain_schedule_matches_plain_scan_and_pallas(band, L, RC):
     inside the band, duplicated ref positions, I32MAX padding."""
     qp, rp, rcv = synth.padded_dp_case(np.random.default_rng(band + L), L,
                                        RC)
-    dd, root, st = emulate_chain(qp, rp, rcv, band, PCL, MAX_GAP, SCORE)
+    dd, root, st = emulate_chain((qp, rp, rcv), band, PCL, MAX_GAP, SCORE)
     pdd, proot = dp_pallas.dp_chain_plain(
         *map(torch.from_numpy, (qp, rp, rcv)), band, PCL, MAX_GAP, SCORE)
     np.testing.assert_array_equal(dd, pdd.numpy())
@@ -619,3 +651,29 @@ def test_chain_schedule_matches_plain_scan_and_pallas(band, L, RC):
     assert st["anchor_steps"][1] == L                     # the full lane
     assert st["ties"] > 0 and st["tiles_skipped"] > 0
     assert (dd & ((1 << dp_pallas.dbits(L)) - 1)).max() > 3
+
+
+@pytest.mark.parametrize("band", [12, 20, 31, 32, 64, 83, 125, 200])
+def test_packed_chain_schedule_matches_plain_scan_and_pallas(band):
+    """dp_chain_packed_kernel's schedule on synth.padded_dp_case's packed
+    words (lanes as in the unpacked test; contig changes ride in rprc),
+    against the plain version, the lax.scan reference and the Pallas
+    kernel: 1 to 7 ring registers, band = 32 * NREG at 32 and 64."""
+    L, RC = 256, 16
+    E = int(np.ceil(np.log2(L)))
+    qprv, rprc = synth.padded_dp_case(np.random.default_rng(band + 7), L,
+                                      RC, packed=True)
+    ddr, st = emulate_chain((qprv, rprc), band, PCL, MAX_GAP, SCORE,
+                            ebits=E)
+    pddr = dp_pallas.dp_chain_packed_plain(
+        torch.from_numpy(qprv), torch.from_numpy(rprc), band, PCL, MAX_GAP,
+        SCORE, E)
+    np.testing.assert_array_equal(ddr, pddr.numpy())
+    np.testing.assert_array_equal(ddr, np.asarray(_dp_scan_packed(
+        qprv, rprc, band, PCL, MAX_GAP, SCORE, E, unroll=8)))
+    np.testing.assert_array_equal(ddr, np.asarray(_dp_pallas_packed(
+        qprv, rprc, band, PCL, MAX_GAP, SCORE, E, interpret=True)))
+    assert st["anchor_steps"][0] == 0                     # the empty lane
+    assert st["anchor_steps"][1] == L                     # the full lane
+    assert st["ties"] > 0 and st["tiles_skipped"] > 0
+    assert ((ddr >> E) & ((1 << E) - 1)).max() > 3

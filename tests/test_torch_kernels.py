@@ -62,6 +62,54 @@ def test_row_gather_plain_matches_pallas():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def test_row_gather_row_map_matches_pallas_on_the_rows_copy():
+    """The row-mapped gather equals the JAX kernel on the rows' copy
+    table[rows] (whose contract wants clipped indices): repeated rows, the
+    first and last rows, row ids outside [0, G) clamped, and indices -5
+    and K + 7 clamped to the row."""
+    rng = np.random.default_rng(3)
+    G, R, K, A = 6, 8, 256, 1024
+    table, idx = _cases(rng, G, K, A)
+    idx = np.concatenate([idx, idx[:R - G]])
+    idx[:, 8:10] = [-5, K + 7]
+    rows = np.array([0, G - 1, 3, 3, 0, G - 1, 2, 4], np.int32)
+    want = np.asarray(mxu_row_gather(table[rows], np.clip(idx, 0, K - 1),
+                                     interpret=True))
+    got = gather.row_gather(torch.from_numpy(table), torch.from_numpy(idx),
+                            torch.from_numpy(rows))
+    np.testing.assert_array_equal(got.numpy(), want)
+    off = rows.copy()
+    off[[2, 3]] = [-7, G + 2]                  # clamp to rows 0 and G - 1
+    got = gather.row_gather(torch.from_numpy(table), torch.from_numpy(idx),
+                            torch.from_numpy(off))
+    clip = np.clip(idx[[2, 3]], 0, K - 1)
+    np.testing.assert_array_equal(
+        got.numpy()[[2, 3]],
+        np.take_along_axis(table[[0, G - 1]], clip, 1))
+
+
+def test_row_gather_bodies_by_width():
+    """The kernel body is picked by the table width alone: one block's
+    shared memory up to 58104 words (the default batch's bpk rows, 40960),
+    a cluster of 2-4 blocks up to 4 x 58104 (dense_cs, 98304; bpk at
+    --slow, 167936), L2 beyond."""
+    assert [gather.row_gather_body(k) for k in (
+        1, 40960, 58104, 58105, 98304, 167936, 232416, 232417)] == [
+        "smem", "smem", "smem", "cluster", "cluster", "cluster", "cluster",
+        "l2"]
+
+
+@pytest.mark.parametrize("bad", ["rows_shape", "table_rows"])
+def test_row_gather_refuses_bad_row_maps(bad):
+    t = torch.zeros((4, 16), dtype=torch.int32)
+    i = torch.zeros((3, 8), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        if bad == "rows_shape":
+            gather.row_gather(t, i, torch.zeros(4, dtype=torch.int32))
+        else:
+            gather.row_gather(t, i)
+
+
 def test_row_scatter_multi_plain_matches_pallas():
     rng = np.random.default_rng(2)
     idx, vals = _scatter_case(rng)
