@@ -66,8 +66,12 @@ line):
 6. kernels — each kernel against its plain version on the card at the
              shapes its path gives it, on adversarial inputs:
              bit-identical (tolerance 0), with medians of CUDA-event times;
-             the 2-plane compact DP also on the default batch's own DP
-             inputs (captured from its phase_a); the padded DP at the
+             the row gather through a row map at its two call sites, with
+             the device time of each body that can take the site's width,
+             and on the default batch's own two calls (captured from its
+             phase_a), the rows' copy then the gather beside the
+             row-mapped call; the 2-plane compact DP also on the default
+             batch's own DP inputs; the padded DP at the
              many-contig slow batch's domain and at the `-c 20` batch's; the
              DP rows carry their SASS instructions per step (the 2-plane
              compact DP's per phase) and the steps their lanes take.  Then
@@ -590,8 +594,8 @@ def joins(batch):
 
 # by name; "row_gather_kernel" and "dp_packed_kernel" are K1's and K9's
 # names before their Hopper redesigns, for runs of older trees
-_OWN_KERNELS = ("row_gather_smem_kernel", "row_gather_cluster_kernel",
-                "row_gather_l2_kernel", "row_gather_kernel",
+_OWN_KERNELS = ("row_gather_smem_kernel", "row_gather_l2_kernel",
+                "row_gather_kernel",
                 "row_scatter_multi_kernel", "windowed_gather_kernel",
                 "genome_map_gather_kernel", "dp_compact_kernel",
                 "dp_wide_kernel", "dp_chain_packed_kernel",
@@ -1026,26 +1030,47 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
                            f"two sites")
     b_rows = ab[1].contiguous()
     b_long = b_rows.long()
-    sites = [(eng.db.arrays[k], c) for k, c in zip(("dense_cs", "bpk"),
-                                                   calls)]
-    before = lambda: [gather.row_gather(tb[b_long], c) for tb, c in sites]
-    after = (lambda: [gather.row_gather(tb, c, b_rows) for tb, c in sites]) \
-        if rowmap else before
-    err, ms, pms, _ = compare(
-        "row_gather[batch]", lambda: tuple(after()),
-        lambda: tuple(gather.row_gather_plain(tb[b_long], c)
-                      for tb, c in sites), 20, 5)
     b_np = b_rows.cpu().numpy()
+    # one call site at a time: device_ms reads one launch of each kernel
+    acc = dict(err=0, ms=0.0, plain_ms=0.0, before_ms=0.0,
+               before_device_ms=0.0, bytes=0, ops=0)
+    b_bodies, shapes = [], []
+    for key, c in zip(("dense_cs", "bpk"), calls):
+        tb = eng.db.arrays[key]
+        before = lambda: gather.row_gather(tb[b_long], c)
+        after = (lambda: gather.row_gather(tb, c, b_rows)) if rowmap \
+            else before
+        want = gather.row_gather_plain(tb[b_long], c)
+        err, ms, pms, _ = compare(
+            "row_gather[batch]", after,
+            lambda: gather.row_gather_plain(tb[b_long], c), 20, 5)
+        bdev = device_ms(before)
+        acc["err"] = max(acc["err"], err)
+        acc["ms"] += ms
+        acc["plain_ms"] += pms
+        acc["before_ms"] += cuda_ms(before, 20)
+        acc["before_device_ms"] += bdev if bdev is not None else float("nan")
+        acc["bytes"] += 4 * 2 * c.numel() + _SECTOR * _sectors(
+            R, tb.shape[1], c.cpu().numpy(), rows=b_np)
+        acc["ops"] += 2 * c.numel()
+        shapes.append([list(tb.shape), list(c.shape), [R]])
+        if rowmap:
+            own = gather.row_gather_body(tb.shape[1])
+            by_body = {}
+            for body in (own, "l2"):
+                f = lambda: gather.row_gather(tb, c, b_rows, body=body)
+                if not torch.equal(f(), want):
+                    raise RuntimeError(f"row_gather[batch]: body {body} "
+                                       f"differs from its plain version")
+                by_body[body] = device_ms(f)
+            b_bodies.append({"table": [key] + list(tb.shape),
+                             "idx": list(c.shape), "body": own,
+                             "device_ms": by_body})
     rows.append(dict(
-        name="row_gather[batch]", counter="row_gather",
-        shape=[[list(tb.shape), list(c.shape), [R]] for tb, c in sites],
-        err=err, ms=ms, plain_ms=pms, library_ms=None,
-        bytes=sum(4 * 2 * c.numel() + _SECTOR * _sectors(
-            R, tb.shape[1], c.cpu().numpy(), rows=b_np) for tb, c in sites),
-        ops=2 * sum(c.numel() for _tb, c in sites), per_batch=2,
-        before_ms=cuda_ms(before, 20), before_device_ms=device_ms(before),
+        name="row_gather[batch]", counter="row_gather", shape=shapes,
+        library_ms=None, per_batch=2, bodies=b_bodies or None,
         row_map=rowmap, source="skani_tpu_torch/csrc/gather.cu",
-        replaces="skani_tpu/kernels/gather_pallas.py:601"))
+        replaces="skani_tpu/kernels/gather_pallas.py:601", **acc))
     del calls, sites
 
     # row_scatter_multi: the fused two-payload fill, (R, 2, P) -> (R, 2, A)

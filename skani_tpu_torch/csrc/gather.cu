@@ -20,21 +20,23 @@
 // memory traffic: the index and output streams are read and written
 // coalesced (consecutive threads, consecutive columns).
 //
-// K1 reads one table row per index row, at random.  A random 4-byte read
-// from global memory pulls a whole 32-byte sector through L2, so the
-// gather is staged where a row fits on chip:
+// K1 reads one table row per index row.  A random 4-byte read from global
+// memory pulls a whole 32-byte sector through L2, so where a row fits on
+// chip the gather is staged:
 //   * smem body (a row of at most kRowSmemWords words, 227 KB): each block
-//     copies its row once into dynamic shared memory with TMA bulk copies
+//     holds its row in dynamic shared memory, copied by TMA bulk copies
 //     (cp.async.bulk completing on an mbarrier) while its threads already
-//     load their first indices, then serves a contiguous span of the row's
-//     indices from shared memory: 4-byte bank reads instead of sectors.
-//     A few blocks share a row so that the grid fills the SMs once.
-//   * cluster body (up to kRowClusterMax row slices): a cluster of CL
-//     blocks on neighbouring SMs splits the row, each copying its slice,
-//     and every block reads any slice through distributed shared memory
-//     (ld.shared::cluster).  The row crosses L2 once a cluster.
+//     load their first indices, and serves a contiguous span of the row's
+//     indices from there: 4-byte bank reads instead of sectors.  The few
+//     blocks that share a row (enough to fill the SMs once) form a cluster
+//     where the occupancy allows, and each copies a share of the row with
+//     .multicast::cluster into every block of it: the row crosses L2 once a
+//     cluster instead of once a block.
 //   * L2 body (any width): 8 indices a thread, int4 index loads and output
 //     stores, the streams marked L2 evict_first and the table evict_last.
+//     A cluster that split a wider row between its blocks and read the
+//     other slices through distributed shared memory measured slower than
+//     this body on the card and was dropped.
 // The body is chosen by the table width alone (kernels/gather.py
 // row_gather_body).  Index loads and output stores are int4 wherever the
 // index width is a multiple of 4 (else one word at a time), with streaming
@@ -51,7 +53,7 @@ namespace cg = cooperative_groups;
 
 // --- K1 ---
 
-constexpr int kGatherThreads = 1024;  // smem and cluster bodies
+constexpr int kGatherThreads = 1024;  // smem body
 constexpr int kUnroll = 4;            // index units a thread keeps in flight
 constexpr int kL2Threads = 256;
 constexpr int kL2Per = 8;             // indices a thread of the L2 body
@@ -60,7 +62,6 @@ constexpr int kBulkChunk = 16384;     // bytes per cp.async.bulk
 // mbarrier, then a row of up to kRowSmemWords words at a pad of 0-3 words
 constexpr int kSmemBytes = 232448;
 constexpr int kRowSmemWords = (kSmemBytes - 16) / 4 - 4;
-constexpr int kRowClusterMax = 4;
 
 __device__ __forceinline__ int clamp_row(int j, int K) {
   return j < 0 ? 0 : (j >= K ? K - 1 : j);
@@ -96,9 +97,9 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   } while (!done);
 }
 
-// Word i of the row where `pad` leaves src's first 16-byte boundary on one
-// of dst's: the shared row starts pad (0-3) words after its 16-byte
-// aligned base.
+// The pad (0-3 words) after a 16-byte aligned shared base at which the
+// copy of a row starting at src begins, so that src's first 16-byte
+// boundary lands on one of the copy's.
 __device__ __forceinline__ int stage_pad(const int32_t* src) {
   const int head = (int)(((16u - ((unsigned)(uintptr_t)src & 15u)) & 15u)
                          >> 2);
@@ -106,12 +107,16 @@ __device__ __forceinline__ int stage_pad(const int32_t* src) {
 }
 
 // Stages words [0, n) of src into dst[pad + i] (dst 16-byte aligned, pad =
-// stage_pad(src)): the 16-byte aligned middle by TMA bulk copies issued by
-// thread 0 that complete on `bar` (whose expected bytes thread 0 sets
-// first), the 0-3 words on either side by plain loads, which the caller's
-// next barrier publishes.
+// stage_pad(src)) in every block of a cluster of CL (1 without a cluster):
+// the 16-byte aligned middle by TMA bulk copies that complete on `bar` in
+// each block (thread 0 of each block sets the whole middle's bytes as
+// expected, then issues every CL-th chunk from its rank q, multicast to
+// all CL blocks), the 0-3 words on either side by plain loads, which the
+// caller's next barrier publishes.  Every block's mbarrier must be
+// initialised cluster-wide before any block issues.
 __device__ __forceinline__ void stage_row(int32_t* dst, const int32_t* src,
-                                          int n, uint64_t* bar) {
+                                          int n, uint64_t* bar, int q,
+                                          int CL) {
   const int pad = stage_pad(src);
   const int head = min((4 - pad) & 3, n);
   const int mid = (n - head) & ~3;
@@ -121,13 +126,24 @@ __device__ __forceinline__ void stage_row(int32_t* dst, const int32_t* src,
         "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
         "r"(mid * 4)
         : "memory");
-    for (int off = 0; off < mid; off += kBulkChunk / 4) {
+    const unsigned short mask = (unsigned short)((1u << CL) - 1u);
+    for (int off = q * (kBulkChunk / 4); off < mid;
+         off += CL * (kBulkChunk / 4)) {
       const int w = min(kBulkChunk / 4, mid - off);
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst + pad + head + off)),
-          "l"(src + head + off), "r"(w * 4), "r"(b)
-          : "memory");
+      const unsigned d = smem_addr(dst + pad + head + off);
+      if (CL == 1) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes [%0], [%1], %2, [%3];\n" ::"r"(d),
+            "l"(src + head + off), "r"(w * 4), "r"(b)
+            : "memory");
+      } else {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+            "bytes.multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(d),
+            "l"(src + head + off), "r"(w * 4), "r"(b), "h"(mask)
+            : "memory");
+      }
     }
   }
   const int t = threadIdx.x;
@@ -208,6 +224,7 @@ __device__ __forceinline__ void serve(const int32_t* __restrict__ irow,
   }
 }
 
+// Blocks x = c * CL + q (cluster c, rank q) of row y serve span x of it.
 template <bool VEC>
 __global__ void __launch_bounds__(kGatherThreads)
 row_gather_smem_kernel(const int32_t* __restrict__ table,
@@ -217,11 +234,17 @@ row_gather_smem_kernel(const int32_t* __restrict__ table,
   extern __shared__ __align__(16) int32_t s_buf[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(s_buf);
   int32_t* srow = s_buf + 4;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CL = (int)cluster.num_blocks();
   const int64_t r = blockIdx.y;
   const int32_t* trow = table + (int64_t)source_row(rows, (int)r, G) * K;
   if (threadIdx.x == 0) mbar_init(bar);
-  __syncthreads();
-  stage_row(srow, trow, K, bar);
+  if (CL > 1) {
+    cluster.sync();  // every block's mbarrier before any multicast
+  } else {
+    __syncthreads();
+  }
+  stage_row(srow, trow, K, bar, (int)cluster.block_rank(), CL);
   const int32_t* s = srow + stage_pad(trow);
   int lo, hi;
   block_span(VEC ? A / 4 : A, blockIdx.x, gridDim.x, lo, hi);
@@ -231,61 +254,8 @@ row_gather_smem_kernel(const int32_t* __restrict__ table,
                mbar_wait(bar, 0);
              },
              [&](int j) { return s[j]; });
-}
-
-// CL blocks of a cluster split the row into slices of S words (S a
-// multiple of 4, so every slice's source has the row's alignment and the
-// same pad); block q of cluster c serves span c * CL + q of the row.
-template <int CL, bool VEC>
-__global__ void __launch_bounds__(kGatherThreads)
-row_gather_cluster_kernel(const int32_t* __restrict__ table,
-                          const int32_t* __restrict__ idx,
-                          const int32_t* __restrict__ rows,
-                          int32_t* __restrict__ out, int G, int K, int A,
-                          int S) {
-  extern __shared__ __align__(16) int32_t s_buf[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(s_buf);
-  int32_t* srow = s_buf + 4;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int q = (int)cluster.block_rank();
-  const int64_t r = blockIdx.y;
-  const int32_t* trow = table + (int64_t)source_row(rows, (int)r, G) * K;
-  if (threadIdx.x == 0) mbar_init(bar);
-  __syncthreads();
-  const int j0 = q * S;
-  stage_row(srow, trow + j0, max(0, min(S, K - j0)), bar);
-  // shared::cluster address of word 0 of every slice
-  const unsigned mine = smem_addr(srow + stage_pad(trow));
-  unsigned base[CL];
-#pragma unroll
-  for (int c = 0; c < CL; ++c) {
-    asm("mapa.shared::cluster.u32 %0, %1, %2;\n"
-        : "=r"(base[c])
-        : "r"(mine), "r"(c));
-  }
-  int lo, hi;
-  block_span(VEC ? A / 4 : A, blockIdx.x, gridDim.x, lo, hi);
-  serve<VEC>(
-      idx + r * A, out + r * A, lo, hi, K,
-      [&] {
-        __syncthreads();
-        mbar_wait(bar, 0);
-        cluster.sync();  // every slice has arrived
-      },
-      [&](int j) {
-        int c = 0;
-#pragma unroll
-        for (int k = 1; k < CL; ++k) c += j >= k * S;
-        unsigned a = base[0];
-#pragma unroll
-        for (int k = 1; k < CL; ++k) a = c == k ? base[k] : a;
-        int v;
-        asm volatile("ld.shared::cluster.b32 %0, [%1];\n"
-                     : "=r"(v)
-                     : "r"(a + 4u * (unsigned)(j - c * S)));
-        return v;
-      });
-  cluster.sync();  // no block leaves while another reads its slice
+  // no block leaves while its multicast into the others may be in flight
+  if (CL > 1) cluster.sync();
 }
 
 template <bool VEC>
@@ -468,60 +438,78 @@ cudaError_t allow_smem(Kern kern, int bytes, int& resident) {
   return e;
 }
 
-// spans of a row: enough to fill the card, at least a thread's unit each
-int spans(int per_row_slots, int units) {
-  const int most = max(1, units / kGatherThreads);
-  return max(1, min(per_row_slots, most));
+// The most clusters of cl blocks (of `bytes` shared memory each) that the
+// card holds at once.
+template <bool VEC>
+int max_clusters(int cl, int bytes) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cl, 1);
+  cfg.blockDim = dim3(kGatherThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cl;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, row_gather_smem_kernel<VEC>, &cfg)
+      != cudaSuccess) {
+    cudaGetLastError();  // a size the card cannot hold: no cluster
+    n = 0;
+  }
+  return n;
 }
 
+// One wave: nb = (blocks the SMs hold) / R spans a row (at least one, at
+// most one a thread's unit), in clusters of the largest cl in 8, 4, 2
+// whose R * (nb / cl) clusters the card holds at once.
 template <bool VEC>
 int gather_smem(const int32_t* table, const int32_t* idx,
                 const int32_t* rows, int32_t* out, int G, int R, int K,
                 int A, cudaStream_t st) {
   const int bytes = smem_bytes(K);
-  static int set_bytes = -1, resident = 1;  // per instance
+  // per instance: the shared memory set, blocks an SM holds, and clusters
+  // the card holds by size (index log2 of the size)
+  static int set_bytes = -1, resident = 1, clusters[4];
   if (bytes != set_bytes) {
-    cudaError_t e =
-        allow_smem(row_gather_smem_kernel<VEC>, bytes, resident);
+    cudaError_t e = allow_smem(row_gather_smem_kernel<VEC>, bytes, resident);
     if (e != cudaSuccess) return (int)e;
+    for (int i = 1; i < 4; ++i) clusters[i] = max_clusters<VEC>(1 << i, bytes);
     set_bytes = bytes;
   }
-  const int nb = spans((sm_count() * resident + R - 1) / R,
-                       VEC ? A / 4 : A);
-  row_gather_smem_kernel<VEC><<<dim3(nb, R), kGatherThreads, bytes, st>>>(
-      table, idx, rows, out, G, K, A);
-  return (int)cudaGetLastError();
-}
-
-template <int CL, bool VEC>
-int gather_cluster(const int32_t* table, const int32_t* idx,
-                   const int32_t* rows, int32_t* out, int G, int R, int K,
-                   int A, cudaStream_t st) {
-  const int S = ((K + CL - 1) / CL + 3) & ~3;
-  const int bytes = smem_bytes(S);
-  static int set_bytes = -1, resident = 1;  // per instance
-  if (bytes != set_bytes) {
-    cudaError_t e =
-        allow_smem(row_gather_cluster_kernel<CL, VEC>, bytes, resident);
-    if (e != cudaSuccess) return (int)e;
-    set_bytes = bytes;
+  const int units = VEC ? A / 4 : A;
+  const int nb = max(1, min(sm_count() * resident / R,
+                            units / kGatherThreads));
+  int cl = 1;
+  for (int i = 3; i >= 1; --i) {
+    const int c = 1 << i;
+    if (nb >= c && (int64_t)R * (nb / c) <= clusters[i]) {
+      cl = c;
+      break;
+    }
   }
-  const int nc = spans((sm_count() * resident / CL + R - 1) / R,
-                       (VEC ? A / 4 : A) / CL);
+  const dim3 grid((nb / cl) * cl, R);
+  if (cl == 1) {
+    row_gather_smem_kernel<VEC><<<grid, kGatherThreads, bytes, st>>>(
+        table, idx, rows, out, G, K, A);
+    return (int)cudaGetLastError();
+  }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(nc * CL, R);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(kGatherThreads);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = st;
   cudaLaunchAttribute at[1];
   at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = CL;
+  at[0].val.clusterDim.x = cl;
   at[0].val.clusterDim.y = 1;
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, row_gather_cluster_kernel<CL, VEC>,
-                                     table, idx, rows, out, G, K, A, S);
+  cudaError_t e = cudaLaunchKernelEx(&cfg, row_gather_smem_kernel<VEC>,
+                                     table, idx, rows, out, G, K, A);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -540,30 +528,16 @@ template <bool VEC>
 int gather_body(int body, const int32_t* table, const int32_t* idx,
                 const int32_t* rows, int32_t* out, int G, int R, int K,
                 int A, cudaStream_t st) {
-  const int cl = (K + kRowSmemWords - 1) / kRowSmemWords;
-  switch (body) {
-    case 0:
-      if (K > kRowSmemWords) break;
-      return gather_smem<VEC>(table, idx, rows, out, G, R, K, A, st);
-    case 1:
-      if (cl == 2)
-        return gather_cluster<2, VEC>(table, idx, rows, out, G, R, K, A, st);
-      if (cl == 3)
-        return gather_cluster<3, VEC>(table, idx, rows, out, G, R, K, A, st);
-      if (cl == 4)
-        return gather_cluster<4, VEC>(table, idx, rows, out, G, R, K, A, st);
-      break;
-    case 2:
-      return gather_l2<VEC>(table, idx, rows, out, G, R, K, A, st);
-  }
+  if (body == 0 && K <= kRowSmemWords)
+    return gather_smem<VEC>(table, idx, rows, out, G, R, K, A, st);
+  if (body == 1) return gather_l2<VEC>(table, idx, rows, out, G, R, K, A, st);
   return (int)cudaErrorInvalidValue;  // the body cannot take this width
 }
 
 }  // namespace
 
-// body: 0 smem (K <= kRowSmemWords), 1 cluster (2-4 slices of at most
-// kRowSmemWords), 2 L2 (any K); kernels/gather.py row_gather_body picks it
-// from K.  rows: int32 (R,) or null for the identity (then G == R).
+// body: 0 smem (K <= kRowSmemWords), 1 L2 (any K); kernels/gather.py
+// row_gather_body picks it from K.  rows: int32 (R,) or null for the identity (then G == R).
 extern "C" int skt_row_gather(const void* table, const void* idx,
                               const void* rows, void* out, int G, int R,
                               int K, int A, int body, void* stream) {

@@ -29,10 +29,10 @@ chip has no fast gather; their shape predicates, plane choices and VMEM
 sizing exist only for that reason and do not carry over.  On the card all
 are memory-bound kernels (csrc/gather.cu): coalesced index and output
 streams, row-local table reads (for the windowed gather's ascending
-indices, coalesced).  row_gather stages its table row on chip where it
-fits: in one block's shared memory (`row_gather_body` "smem", rows of at
-most ROW_SMEM_WORDS words), split over a cluster of up to ROW_CLUSTER_MAX
-blocks ("cluster"), else it reads the row through L2 ("l2").
+indices, coalesced).  row_gather stages its table row in each block's
+shared memory where it fits (`row_gather_body` "smem", rows of at most
+ROW_SMEM_WORDS words; the blocks of a row copy it once a cluster), else it
+reads the row through L2 ("l2").
 
 Dispatch rule: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises.  There is no fallback from one to the other.
@@ -62,21 +62,15 @@ def _check_i32(name, *ts):
 
 
 #: the widest row (int32 words) that one block stages in its 227 KB of
-#: shared memory (less the mbarrier and a pad of up to 3 words), and the
-#: most blocks of a cluster that split a wider row between them
+#: shared memory (less the mbarrier and a pad of up to 3 words)
 ROW_SMEM_WORDS = 58104
-ROW_CLUSTER_MAX = 4
-_BODY_CODE = {"smem": 0, "cluster": 1, "l2": 2}
+_BODY_CODE = {"smem": 0, "l2": 1}
 
 
 def row_gather_body(K: int) -> str:
     """The body of the row_gather kernel that takes rows of K words: the
     table width alone decides it."""
-    if K <= ROW_SMEM_WORDS:
-        return "smem"
-    if K <= ROW_CLUSTER_MAX * ROW_SMEM_WORDS:
-        return "cluster"
-    return "l2"
+    return "smem" if K <= ROW_SMEM_WORDS else "l2"
 
 
 def row_gather_plain(table: torch.Tensor, idx: torch.Tensor,

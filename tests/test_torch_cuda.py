@@ -44,17 +44,18 @@ def test_row_gather_kernel_matches_plain(dev):
     assert torch.equal(got, gather.row_gather_plain(table, idx))
 
 
-# (G, R, K, A, rows): a row each body stages (smem: <= 58104 words,
-# cluster: 2-4 slices, the widest of 3 and 4 slices exactly full, l2:
-# wider), with and without the row map, R > G with repeated rows, index
-# widths A % 4 != 0 and odd K (rows that start off a 16-byte boundary)
+# (G, R, K, A, rows): rows the smem body stages (<= 58104 words; the
+# widest that fits; R from 1 to 128 spans a row, in clusters of 1 to 8
+# blocks) and wider rows (L2 body), with and without the row map, R > G
+# with repeated rows, index widths A % 4 != 0 and odd K (rows that start
+# off a 16-byte boundary)
 _ROW_MAP = [
     (40, 33, 40960, 47104, True), (33, 33, 40960, 47104, False),
     (20, 33, 98304, 40960, True), (33, 33, 98304, 40960, False),
     (5, 7, 300001, 20000, True), (7, 7, 262144, 8192, False),
     (9, 11, 5001, 4097, True), (6, 13, 70001, 1023, True),
-    (3, 5, 250001, 999, True), (2, 3, 5, 7, True),
-    (4, 4, 174312, 4096, True), (3, 6, 232416, 4096, True)]
+    (2, 3, 5, 7, True), (3, 4, 58104, 65536, True),
+    (2, 1, 58103, 40000, True), (64, 128, 512, 512, True)]
 
 
 @pytest.mark.parametrize("G,R,K,A,use_rows", _ROW_MAP)
@@ -70,7 +71,7 @@ def test_row_gather_kernel_row_map_bodies(dev, G, R, K, A, use_rows):
     rows = None
     if use_rows:
         r_np = rng.integers(0, G, size=R).astype(np.int32)
-        r_np[:3] = [0, G - 1, 0]
+        r_np[:3] = np.array([0, G - 1, 0], np.int32)[:R]
         rows = torch.from_numpy(r_np).to(dev)
     want = gather.row_gather_plain(table, idx, rows)
     own = gather.row_gather_body(K)
