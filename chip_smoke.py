@@ -1049,7 +1049,8 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
         acc["ms"] += ms
         acc["plain_ms"] += pms
         acc["before_ms"] += cuda_ms(before, 20)
-        acc["before_device_ms"] += bdev if bdev is not None else float("nan")
+        acc["before_device_ms"] = None if None in (
+            bdev, acc["before_device_ms"]) else acc["before_device_ms"] + bdev
         acc["bytes"] += 4 * 2 * c.numel() + _SECTOR * _sectors(
             R, tb.shape[1], c.cpu().numpy(), rows=b_np)
         acc["ops"] += 2 * c.numel()
@@ -1071,7 +1072,7 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
         library_ms=None, per_batch=2, bodies=b_bodies or None,
         row_map=rowmap, source="skani_tpu_torch/csrc/gather.cu",
         replaces="skani_tpu/kernels/gather_pallas.py:601", **acc))
-    del calls, sites
+    del calls
 
     # row_scatter_multi: the fused two-payload fill, (R, 2, P) -> (R, 2, A)
     sidx = t(synth.unique_targets(rng, R, P, A))
