@@ -211,12 +211,19 @@ _SASS_BRA = re.compile(r"BRA (?:`\()?0x([0-9a-f]+)")
 
 def kernel_name(mangled: str):
     """"name<N>" of a kernel instance from its mangled name (N: its
-    template arguments, none for a plain kernel)."""
-    m = re.search(r"([a-z][a-z_]*?_kernel)(?:I((?:L[ib]\d+E)+)E)?", mangled)
-    if m is None:
-        return None
-    args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
-    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+    template arguments, none for a plain kernel).  The name is the
+    identifier ending in "_kernel" that its length prefix (the digits
+    before it) spans exactly, so names with digits parse too."""
+    for m in re.finditer(r"\d+", mangled):
+        run = m.group()
+        for k in range(len(run)):
+            name = mangled[m.end():m.end() + int(run[k:])]
+            if re.fullmatch(r"[a-z][a-z0-9_]*_kernel", name):
+                rest = mangled[m.end() + len(name):]
+                t = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+                args = re.findall(r"L[ib](\d+)E", t.group(1)) if t else []
+                return name + (f"<{','.join(args)}>" if args else "")
+    return None
 
 
 def _sass_loops(ins):
