@@ -1004,6 +1004,7 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
                                        f"from its plain version")
                 by_body[body] = device_ms(f)
             g_bodies.append({"table": [G, K], "idx": [R, N], "body": own,
+                             "cluster": gather.row_gather_cluster(R, K, N),
                              "device_ms": by_body})
         del table, tab_r, idx, idx_in
     rows.append(dict(name="row_gather", shape=g_shapes, err=g_err,

@@ -462,54 +462,68 @@ int max_clusters(int cl, int bytes) {
   return n;
 }
 
-// One wave: nb = (blocks the SMs hold) / R spans a row (at least one, at
-// most one a thread's unit), in clusters of the largest cl in 8, 4, 2
-// whose R * (nb / cl) clusters the card holds at once.
+// The smem body's launch: its shared memory, and in one wave nb = (blocks
+// the SMs hold) / R spans a row (at least one, at most one a thread's
+// unit), in clusters of the largest cl in 8, 4, 2 whose R * (nb / cl)
+// clusters the card holds at once (else 1, no cluster).
+struct SmemPlan {
+  int bytes, nb, cl;
+};
+
+template <bool VEC>
+cudaError_t smem_plan(int R, int K, int A, SmemPlan& p) {
+  p.bytes = smem_bytes(K);
+  // per instance: the shared memory set, blocks an SM holds, and clusters
+  // the card holds by size (index log2 of the size)
+  static int set_bytes = -1, resident = 1, clusters[4];
+  if (p.bytes != set_bytes) {
+    cudaError_t e =
+        allow_smem(row_gather_smem_kernel<VEC>, p.bytes, resident);
+    if (e != cudaSuccess) return e;
+    for (int i = 1; i < 4; ++i)
+      clusters[i] = max_clusters<VEC>(1 << i, p.bytes);
+    set_bytes = p.bytes;
+  }
+  const int units = VEC ? A / 4 : A;
+  p.nb = max(1, min(sm_count() * resident / R, units / kGatherThreads));
+  p.cl = 1;
+  for (int i = 3; i >= 1; --i) {
+    const int c = 1 << i;
+    if (p.nb >= c && (int64_t)R * (p.nb / c) <= clusters[i]) {
+      p.cl = c;
+      break;
+    }
+  }
+  return cudaSuccess;
+}
+
 template <bool VEC>
 int gather_smem(const int32_t* table, const int32_t* idx,
                 const int32_t* rows, int32_t* out, int G, int R, int K,
                 int A, cudaStream_t st) {
-  const int bytes = smem_bytes(K);
-  // per instance: the shared memory set, blocks an SM holds, and clusters
-  // the card holds by size (index log2 of the size)
-  static int set_bytes = -1, resident = 1, clusters[4];
-  if (bytes != set_bytes) {
-    cudaError_t e = allow_smem(row_gather_smem_kernel<VEC>, bytes, resident);
-    if (e != cudaSuccess) return (int)e;
-    for (int i = 1; i < 4; ++i) clusters[i] = max_clusters<VEC>(1 << i, bytes);
-    set_bytes = bytes;
-  }
-  const int units = VEC ? A / 4 : A;
-  const int nb = max(1, min(sm_count() * resident / R,
-                            units / kGatherThreads));
-  int cl = 1;
-  for (int i = 3; i >= 1; --i) {
-    const int c = 1 << i;
-    if (nb >= c && (int64_t)R * (nb / c) <= clusters[i]) {
-      cl = c;
-      break;
-    }
-  }
-  const dim3 grid((nb / cl) * cl, R);
-  if (cl == 1) {
-    row_gather_smem_kernel<VEC><<<grid, kGatherThreads, bytes, st>>>(
+  SmemPlan p;
+  cudaError_t e = smem_plan<VEC>(R, K, A, p);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((p.nb / p.cl) * p.cl, R);
+  if (p.cl == 1) {
+    row_gather_smem_kernel<VEC><<<grid, kGatherThreads, p.bytes, st>>>(
         table, idx, rows, out, G, K, A);
     return (int)cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(kGatherThreads);
-  cfg.dynamicSmemBytes = bytes;
+  cfg.dynamicSmemBytes = p.bytes;
   cfg.stream = st;
   cudaLaunchAttribute at[1];
   at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = cl;
+  at[0].val.clusterDim.x = p.cl;
   at[0].val.clusterDim.y = 1;
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, row_gather_smem_kernel<VEC>,
-                                     table, idx, rows, out, G, K, A);
+  e = cudaLaunchKernelEx(&cfg, row_gather_smem_kernel<VEC>, table, idx, rows,
+                         out, G, K, A);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -553,6 +567,17 @@ extern "C" int skt_row_gather(const void* table, const void* idx,
   const auto st = (cudaStream_t)stream;
   return vec ? gather_body<true>(body, t, i, m, o, G, R, K, A, st)
              : gather_body<false>(body, t, i, m, o, G, R, K, A, st);
+}
+
+// The cluster size of the smem body's launch for R index rows of A words
+// (16-byte aligned) on a table of K-word rows: 1 without a cluster, 0
+// where K takes the L2 body, minus the CUDA error where a query failed.
+extern "C" int skt_row_gather_cluster(int R, int K, int A) {
+  if (R <= 0 || A <= 0 || K < 1 || K > kRowSmemWords) return 0;
+  SmemPlan p;
+  const cudaError_t e = A % 4 == 0 ? smem_plan<true>(R, K, A, p)
+                                   : smem_plan<false>(R, K, A, p);
+  return e == cudaSuccess ? p.cl : -(int)e;
 }
 
 extern "C" int skt_row_scatter_multi(const void* idx, const void* vals,

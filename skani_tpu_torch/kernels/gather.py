@@ -73,6 +73,17 @@ def row_gather_body(K: int) -> str:
     return "smem" if K <= ROW_SMEM_WORDS else "l2"
 
 
+def row_gather_cluster(R: int, K: int, A: int) -> int:
+    """Blocks of a cluster that share one staged row when the smem body
+    gathers R index rows of A words (A a multiple of 4) from rows of K
+    words on the current CUDA device: 1 for no cluster, 0 where K takes
+    the L2 body.  For measurement; needs the card."""
+    c = _build.lib().skt_row_gather_cluster(int(R), int(K), int(A))
+    if c < 0:
+        raise RuntimeError(f"row_gather_cluster: CUDA error {-c}")
+    return c
+
+
 def row_gather_plain(table: torch.Tensor, idx: torch.Tensor,
                      rows=None) -> torch.Tensor:
     """Plain version: the rows' copy table[rows], then torch.gather along

@@ -84,6 +84,17 @@ def test_row_gather_kernel_row_map_bodies(dev, G, R, K, A, use_rows):
         assert torch.equal(got, want), body
 
 
+def test_row_gather_smem_body_forms_clusters(dev):
+    """The smem body shares a staged row over a cluster where the card
+    holds one wave of them (one row of 40000 indices: several blocks),
+    not for 128 short rows (one block a row) nor for rows it cannot
+    stage."""
+    assert gather.row_gather_cluster(1, 58103, 40000) > 1
+    assert gather.row_gather_cluster(33, 40960, 47104) >= 1
+    assert gather.row_gather_cluster(128, 512, 512) == 1
+    assert gather.row_gather_cluster(33, 98304, 40960) == 0
+
+
 def test_row_gather_kernel_row_map_clamps_rows(dev):
     rng = np.random.default_rng(17)
     table = torch.from_numpy(synth.adversarial_words(rng, (6, 4096))).to(dev)
