@@ -62,13 +62,14 @@ line):
 5. joins   — the default preset's first batch through phase_a with the
              three joins (dense_pos, dense, merge) and with the
              single-payload fill: all packed outputs bit-identical to each
-             other and to the CPU run, each timed with CUDA events.
+             other and to the CPU run, each timed with CUDA events and
+             by its host enqueue.
 6. kernels — each kernel against its plain version on the card at the
              shapes its path gives it, on adversarial inputs:
              bit-identical (tolerance 0), with medians of CUDA-event times;
              the row gather through a row map at its two call sites, with
-             the device time of each body that can take the site's width,
-             and on the default batch's own two calls (captured from its
+             each site's device time, and on the default batch's own two
+             calls (captured from its
              phase_a), the rows' copy then the gather beside the
              row-mapped call; the 2-plane compact DP also on the default
              batch's own DP inputs; the padded DP at the
@@ -552,7 +553,10 @@ def phase_a_parity(sets, preset, cpu_check):
         gpu_first_call_s=t_gpu,
         # host time to enqueue one batch (no sync) and the CUDA-event time
         # of one batch end to end on the stream
-        enqueue_ms=1e3 * t_enqueue, batch_ms=gpu_ms, profile=prof, **info)
+        enqueue_ms=1e3 * t_enqueue,
+        enqueue_median_ms=enqueue_ms(lambda: phase_a(eng.db.arrays, ab,
+                                                     **args)),
+        batch_ms=gpu_ms, profile=prof, **info)
 
 
 @phase("joins")
@@ -578,9 +582,11 @@ def joins(batch):
         if not torch.equal(got, want):
             raise RuntimeError(f"joins: {name} differs from dense_pos")
     launches = read_launches()
+    enq = {}
     for name, over in variants.items():
-        ms[name] = cuda_ms(
-            lambda: phase_a(eng.db.arrays, ab, **dict(args, **over)), 10)
+        fn = lambda: phase_a(eng.db.arrays, ab, **dict(args, **over))
+        ms[name] = cuda_ms(fn, 10)
+        enq[name] = enqueue_ms(fn)
     # the engine's own routing: a forced join is what a user would pass
     for jm in ("dense", "merge"):
         e2 = DevicePairEngine(eng.sketches, eng.sketch_params,
@@ -594,19 +600,18 @@ def joins(batch):
     return launches, {"preset": "default",
                       "genomes": _RUNS["default"]["depth"],
                       "bit_identical": True, "batch_ms": ms,
-                      "launches_by_variant": counts, "launches": launches,
+                      # median host time to enqueue one batch
+                      "enqueue_ms": enq, "launches_by_variant": counts,
+                      "launches": launches,
                       "R": int(ab.shape[1]), "A": args["A"],
                       "P": eng.db.P, "U": eng.db.U, "K": eng.db.K}
 
 
-# by name; "row_gather_kernel" and "dp_packed_kernel" are K1's and K9's
-# names before their Hopper redesigns, for runs of older trees
-_OWN_KERNELS = ("row_gather_smem_kernel", "row_gather_l2_kernel",
-                "row_gather_kernel",
-                "row_scatter_multi_kernel", "windowed_gather_kernel",
-                "genome_map_gather_kernel", "dp_compact_kernel",
-                "dp_wide_kernel", "dp_chain_packed_kernel",
-                "dp_packed_kernel", "dp_chain_kernel", "expand_kernel")
+_OWN_KERNELS = ("row_gather_kernel", "row_gather_staged_kernel",
+                "row_scatter_multi_kernel",
+                "windowed_gather_kernel", "genome_map_gather_kernel",
+                "dp_compact_kernel", "dp_wide_kernel",
+                "dp_chain_packed_kernel", "dp_chain_kernel", "expand_kernel")
 
 
 def _device_events(fn, reps: int):
@@ -662,6 +667,18 @@ def back_to_back_ms(fn, reps: int = 10) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def enqueue_ms(fn, reps: int = 7) -> float:
+    """Median host time to enqueue one fn() call on an idle stream."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        ts.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return float(np.median(ts))
 
 
 def profile_phase_a(fn, reps: int) -> dict:
@@ -830,14 +847,6 @@ def _sectors(R, K, idx_np, mask=None, rows=None):
     return np.unique(sec if mask is None else sec[mask]).size
 
 
-def row_map() -> bool:
-    """Whether this tree's row_gather takes a row map (older trees gather
-    from the batch's copy of the rows)."""
-    import inspect
-    from skani_tpu_torch.kernels import gather
-    return "rows" in inspect.signature(gather.row_gather).parameters
-
-
 def dp_candidates(valid, band) -> int:
     """(anchor, candidate) pairs the recurrence needs: a valid anchor at
     step i of its lane (the last axis) weighs the min(band, i) steps before
@@ -962,14 +971,11 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
     # (G, U) table at (R, P) indices, and the ref-side bpk (G, P) table at
     # (R, A) indices, each through the batch's ref rows (repeated genome
     # ids, the first and the last); adversarial words, boundary and
-    # out-of-range indices.  A tree without the row map gathers from the
-    # rows' copy, made outside the timed call.  Every body that can take
-    # a site's width is timed there (device ms by body)
-    rowmap = row_map()
+    # out-of-range indices.  Device ms by site
     G = eng.db.G
     g_ms = g_plain = g_lib = g_bytes = 0.0
     g_err = 0
-    g_shapes, g_bodies = [], []
+    g_shapes, g_sites = [], []
     for K, N in ((U, P), (P, A)):
         table = t(synth.adversarial_words(rng, (G, K)))
         rows_np = rng.integers(0, G, size=R).astype(np.int32)
@@ -980,10 +986,7 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
         idx_np[:, :8] = [0, 1, 127, 128, K - 2, K - 1, -5, K + 7]
         idx = t(idx_np)
         idx_in = t(np.clip(idx_np, 0, K - 1))
-        if rowmap:
-            fn = lambda: gather.row_gather(table, idx, rows_t)
-        else:
-            fn = lambda: gather.row_gather(tab_r, idx)
+        fn = lambda: gather.row_gather(table, idx, rows_t)
         err, ms, pms, lms = compare(
             "row_gather", fn, lambda: gather.row_gather_plain(tab_r, idx),
             20, 20, library=lambda: torch.gather(tab_r, 1, idx_in.long()))
@@ -994,30 +997,20 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
         g_bytes += 4 * 2 * R * N + _SECTOR * _sectors(R, K, idx_np,
                                                       rows=rows_np)
         g_shapes.append([[G, K], [R, N], [R]])
-        if rowmap:
-            own = gather.row_gather_body(K)
-            by_body = {}
-            for body in (own, "l2"):
-                f = lambda: gather.row_gather(table, idx, rows_t, body=body)
-                if not torch.equal(f(), gather.row_gather_plain(tab_r, idx)):
-                    raise RuntimeError(f"row_gather: body {body} differs "
-                                       f"from its plain version")
-                by_body[body] = device_ms(f)
-            g_bodies.append({"table": [G, K], "idx": [R, N], "body": own,
-                             "cluster": gather.row_gather_cluster(R, K, N),
-                             "device_ms": by_body})
+        g_sites.append({"table": [G, K], "idx": [R, N],
+                        "device_ms": device_ms(fn)})
         del table, tab_r, idx, idx_in
     rows.append(dict(name="row_gather", shape=g_shapes, err=g_err,
                      ms=g_ms, plain_ms=g_plain, library_ms=g_lib,
                      bytes=g_bytes, ops=2 * R * (P + A), per_batch=2,
-                     bodies=g_bodies or None,
-                     source="skani_tpu_torch/csrc/gather.cu",
+                     sites=g_sites, source="skani_tpu_torch/csrc/gather.cu",
                      replaces="skani_tpu/kernels/gather_pallas.py:601"))
 
     # row_gather on the default batch's own inputs: its two calls (the
     # dense_pos join of dense_cs, the ref-side gather of bpk), grabbed
     # from its phase_a.  Before: the batch's copy of the rows, then the
-    # gather (what older trees run); after: the row-mapped kernel
+    # gather, as a gather without a row map needs; after: the row-mapped
+    # call.  Device ms by site
     from skani_tpu_torch.kernels import device_pipeline
     from skani_tpu_torch.kernels.device_pipeline import phase_a
     calls = []
@@ -1042,13 +1035,11 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
     # one call site at a time: device_ms reads one launch of each kernel
     acc = dict(err=0, ms=0.0, plain_ms=0.0, before_ms=0.0,
                before_device_ms=0.0, bytes=0, ops=0)
-    b_bodies, shapes = [], []
+    b_sites, shapes = [], []
     for key, c in zip(("dense_cs", "bpk"), calls):
         tb = eng.db.arrays[key]
         before = lambda: gather.row_gather(tb[b_long], c)
-        after = (lambda: gather.row_gather(tb, c, b_rows)) if rowmap \
-            else before
-        want = gather.row_gather_plain(tb[b_long], c)
+        after = lambda: gather.row_gather(tb, c, b_rows)
         err, ms, pms, _ = compare(
             "row_gather[batch]", after,
             lambda: gather.row_gather_plain(tb[b_long], c), 20, 5)
@@ -1063,22 +1054,13 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
             R, tb.shape[1], c.cpu().numpy(), rows=b_np)
         acc["ops"] += 2 * c.numel()
         shapes.append([list(tb.shape), list(c.shape), [R]])
-        if rowmap:
-            own = gather.row_gather_body(tb.shape[1])
-            by_body = {}
-            for body in (own, "l2"):
-                f = lambda: gather.row_gather(tb, c, b_rows, body=body)
-                if not torch.equal(f(), want):
-                    raise RuntimeError(f"row_gather[batch]: body {body} "
-                                       f"differs from its plain version")
-                by_body[body] = device_ms(f)
-            b_bodies.append({"table": [key] + list(tb.shape),
-                             "idx": list(c.shape), "body": own,
-                             "device_ms": by_body})
+        b_sites.append({"table": [key] + list(tb.shape),
+                        "idx": list(c.shape), "device_ms": device_ms(after),
+                        "before_device_ms": bdev})
     rows.append(dict(
         name="row_gather[batch]", counter="row_gather", shape=shapes,
-        library_ms=None, per_batch=2, bodies=b_bodies or None,
-        row_map=rowmap, source="skani_tpu_torch/csrc/gather.cu",
+        library_ms=None, per_batch=2, sites=b_sites,
+        source="skani_tpu_torch/csrc/gather.cu",
         replaces="skani_tpu/kernels/gather_pallas.py:601", **acc))
     del calls
 
@@ -1204,12 +1186,9 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
                      chain_steps=L_CAP, lanes=RCp,
                      valid_anchors=int((pk_np[0] & 1).sum()),
                      ring=dp_compact.ring_size(band),
-                     # the ring kernel's instance, or the one before it
                      sass_per_step=sass.get(
                          "dp_chain_packed_kernel"
-                         f"<{dp_compact.ring_regs(band)}>") or sass.get(
-                         "dp_packed_kernel"
-                         f"<{max(dp_compact.ring_size(band) // 32, 1)}>"),
+                         f"<{dp_compact.ring_regs(band)}>"),
                      source="skani_tpu_torch/csrc/dp_padded.cu",
                      replaces="skani_tpu/kernels/dp_pallas.py:414"))
 
@@ -1417,7 +1396,6 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
         for n, rep in names:
             rows.append(dict(
                 name=f"K12 {n}", counter="row_gather", timing=key,
-                bodies=[gather.row_gather_body(K)] if rowmap else None,
                 shape=[[R, K], [R, A]], err=err, ms=ms, plain_ms=pms,
                 library_ms=lms, per_batch=0,
                 bytes=4 * 2 * R * A + _SECTOR * _sectors(R, K, idx_np),
@@ -1537,9 +1515,8 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
               "steps": r.get("steps"),
               "warps_per_sm": r.get("warps_per_sm"),
               "issue_per_sm_cycle": r.get("issue_per_sm_cycle"),
-              "bodies": r.get("bodies"), "before_ms": r.get("before_ms"),
-              "before_device_ms": r.get("before_device_ms"),
-              "row_map": r.get("row_map"), "card": name})
+              "sites": r.get("sites"), "before_ms": r.get("before_ms"),
+              "before_device_ms": r.get("before_device_ms"), "card": name})
     return rows, {"kernels_checked": len(rows), "tolerance": 0,
                   "one_lane_step": lane,
                   "dp_chain_compact_wide_variants": variants}
@@ -1601,7 +1578,7 @@ def main() -> int:
                "library_device_ms_source": r["library_device_ms_source"]}
         for k in ("device_ms_events", "sass_per_step", "sass_per_column",
                   "steps", "lanes", "warps_per_sm", "issue_per_sm_cycle",
-                  "bodies", "before_ms", "before_device_ms"):
+                  "sites", "before_ms", "before_device_ms"):
             if r.get(k) is not None:
                 row[k] = r[k]
         table.append(row)

@@ -20,46 +20,45 @@
 // memory traffic: the index and output streams are read and written
 // coalesced (consecutive threads, consecutive columns).
 //
-// K1 reads one table row per index row.  A random 4-byte read from global
-// memory pulls a whole 32-byte sector through L2, so where a row fits on
-// chip the gather is staged:
-//   * smem body (a row of at most kRowSmemWords words, 227 KB): each block
-//     holds its row in dynamic shared memory, copied by TMA bulk copies
-//     (cp.async.bulk completing on an mbarrier) while its threads already
-//     load their first indices, and serves a contiguous span of the row's
-//     indices from there: 4-byte bank reads instead of sectors.  The few
-//     blocks that share a row (enough to fill the SMs once) form a cluster
-//     where the occupancy allows, and each copies a share of the row with
-//     .multicast::cluster into every block of it: the row crosses L2 once a
-//     cluster instead of once a block.
-//   * L2 body (any width): 8 indices a thread, int4 index loads and output
-//     stores, the streams marked L2 evict_first and the table evict_last.
-//     A cluster that split a wider row between its blocks and read the
-//     other slices through distributed shared memory measured slower than
-//     this body on the card and was dropped.
-// The body is chosen by the table width alone (kernels/gather.py
-// row_gather_body).  Index loads and output stores are int4 wherever the
-// index width is a multiple of 4 (else one word at a time), with streaming
-// cache hints.  `rows` (int32, clamped into [0, G)) maps output row r to
-// table row rows[r], so callers pass a device table and the batch's genome
-// ids instead of a per-batch copy of the rows.
-#include <cooperative_groups.h>
+// K1 reads one table row per index row; each block serves a contiguous
+// span of one row's indices, in one of two ways:
+//   * direct: consecutive lanes on consecutive indices, the table read
+//     through L2: one index a thread where that fills the card at most
+//     once (short launches are latency-bound), else 4 indices a thread in
+//     flight (long ones stream).  Sorted indices touch few 32-byte
+//     sectors a warp this way.
+//   * staged: the block copies its row into dynamic shared memory by TMA
+//     bulk copies (cp.async.bulk completing on an mbarrier) while its
+//     threads load their first indices, then serves them from there with
+//     int4 index loads and output stores: 4-byte bank reads instead of
+//     the 32-byte sector that a random read pulls through L2.
+// The launch offers staging where the shape makes it pay (a row of at most
+// kRowSmemWords words, 227 KB, and a span of more indices than the row
+// has sectors); each block of such a launch then stages only when its
+// first 32 indices are not nondecreasing, because a sorted span reads
+// fewer bytes directly than the copy of its row moves.
+// The choice changes only where words are read from, never the result.
+// Every stream keeps the default cache policy: phase A's next kernel reads
+// the output, and evict-first hints on the index and output streams
+// measured slower wherever the inputs were still in L2.
+// `rows` (int32, clamped into [0, G)) maps output row r to table row
+// rows[r], so callers pass a device table and the batch's genome ids
+// instead of a per-batch copy of the rows.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-namespace cg = cooperative_groups;
-
 // --- K1 ---
 
-constexpr int kGatherThreads = 1024;  // smem body
-constexpr int kUnroll = 4;            // index units a thread keeps in flight
-constexpr int kL2Threads = 256;
-constexpr int kL2Per = 8;             // indices a thread of the L2 body
+constexpr int kGatherThreads = 1024;  // a block of a staging launch
+constexpr int kDirectThreads = 256;   // a block of a direct launch
+constexpr int kUnroll = 4;            // staged: index units in flight
+constexpr int kDirectPer = 4;         // direct: indices in flight
 constexpr int kBulkChunk = 16384;     // bytes per cp.async.bulk
-// dynamic shared memory of one block (232,448 bytes): 16 bytes of
-// mbarrier, then a row of up to kRowSmemWords words at a pad of 0-3 words
+// dynamic shared memory of one staging block (232,448 bytes): 16 bytes of
+// mbarrier and flag, then a row of up to kRowSmemWords words at a pad of
+// 0-3 words
 constexpr int kSmemBytes = 232448;
 constexpr int kRowSmemWords = (kSmemBytes - 16) / 4 - 4;
 
@@ -107,16 +106,12 @@ __device__ __forceinline__ int stage_pad(const int32_t* src) {
 }
 
 // Stages words [0, n) of src into dst[pad + i] (dst 16-byte aligned, pad =
-// stage_pad(src)) in every block of a cluster of CL (1 without a cluster):
-// the 16-byte aligned middle by TMA bulk copies that complete on `bar` in
-// each block (thread 0 of each block sets the whole middle's bytes as
-// expected, then issues every CL-th chunk from its rank q, multicast to
-// all CL blocks), the 0-3 words on either side by plain loads, which the
-// caller's next barrier publishes.  Every block's mbarrier must be
-// initialised cluster-wide before any block issues.
+// stage_pad(src)): the 16-byte aligned middle by TMA bulk copies that
+// complete on `bar` (thread 0 sets the middle's bytes as expected, then
+// issues them), the 0-3 words on either side by plain loads, which the
+// caller's next barrier publishes.
 __device__ __forceinline__ void stage_row(int32_t* dst, const int32_t* src,
-                                          int n, uint64_t* bar, int q,
-                                          int CL) {
+                                          int n, uint64_t* bar) {
   const int pad = stage_pad(src);
   const int head = min((4 - pad) & 3, n);
   const int mid = (n - head) & ~3;
@@ -126,24 +121,14 @@ __device__ __forceinline__ void stage_row(int32_t* dst, const int32_t* src,
         "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
         "r"(mid * 4)
         : "memory");
-    const unsigned short mask = (unsigned short)((1u << CL) - 1u);
-    for (int off = q * (kBulkChunk / 4); off < mid;
-         off += CL * (kBulkChunk / 4)) {
+    for (int off = 0; off < mid; off += kBulkChunk / 4) {
       const int w = min(kBulkChunk / 4, mid - off);
-      const unsigned d = smem_addr(dst + pad + head + off);
-      if (CL == 1) {
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
-            "bytes [%0], [%1], %2, [%3];\n" ::"r"(d),
-            "l"(src + head + off), "r"(w * 4), "r"(b)
-            : "memory");
-      } else {
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
-            "bytes.multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(d),
-            "l"(src + head + off), "r"(w * 4), "r"(b), "h"(mask)
-            : "memory");
-      }
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::"
+          "bytes [%0], [%1], %2, [%3];\n" ::"r"(
+              smem_addr(dst + pad + head + off)),
+          "l"(src + head + off), "r"(w * 4), "r"(b)
+          : "memory");
     }
   }
   const int t = threadIdx.x;
@@ -169,145 +154,147 @@ __device__ __forceinline__ void load_units(const int32_t* __restrict__ irow,
     const int v = u + k * (int)blockDim.x;
     if (v < hi) {
       if constexpr (VEC) {
-        const int4 q = __ldcs(reinterpret_cast<const int4*>(irow) + v);
+        const int4 q = __ldg(reinterpret_cast<const int4*>(irow) + v);
         ix[k][0] = q.x;
         ix[k][1] = q.y;
         ix[k][2] = q.z;
         ix[k][3] = q.w;
       } else {
-        ix[k][0] = __ldcs(irow + v);
+        ix[k][0] = __ldg(irow + v);
       }
     }
   }
 }
 
-template <bool VEC, class Get>
+template <bool VEC>
 __device__ __forceinline__ void store_units(int32_t* __restrict__ orow,
                                             int u, int hi, int K,
                                             const int (&ix)[kUnroll][4],
-                                            const Get& get) {
+                                            const int32_t* s) {
 #pragma unroll
   for (int k = 0; k < kUnroll; ++k) {
     const int v = u + k * (int)blockDim.x;
     if (v < hi) {
       if constexpr (VEC) {
         int4 o;
-        o.x = get(clamp_row(ix[k][0], K));
-        o.y = get(clamp_row(ix[k][1], K));
-        o.z = get(clamp_row(ix[k][2], K));
-        o.w = get(clamp_row(ix[k][3], K));
-        __stcs(reinterpret_cast<int4*>(orow) + v, o);
+        o.x = s[clamp_row(ix[k][0], K)];
+        o.y = s[clamp_row(ix[k][1], K)];
+        o.z = s[clamp_row(ix[k][2], K)];
+        o.w = s[clamp_row(ix[k][3], K)];
+        reinterpret_cast<int4*>(orow)[v] = o;
       } else {
-        __stcs(orow + v, get(clamp_row(ix[k][0], K)));
+        orow[v] = s[clamp_row(ix[k][0], K)];
       }
     }
   }
 }
 
-// Serves units [lo, hi) of one index row through get(j): the first
-// kUnroll units a thread are loaded before ready() (the row's arrival)
-// returns, so the index stream overlaps the row copy.
-template <bool VEC, class Ready, class Get>
-__device__ __forceinline__ void serve(const int32_t* __restrict__ irow,
-                                      int32_t* __restrict__ orow, int lo,
-                                      int hi, int K, const Ready& ready,
-                                      const Get& get) {
+// Serves units [lo, hi) of one index row from the staged row s: the first
+// kUnroll units a thread are loaded before the row's arrival is awaited,
+// so the index stream overlaps the copy.
+template <bool VEC>
+__device__ __forceinline__ void serve_staged(
+    const int32_t* __restrict__ irow, int32_t* __restrict__ orow, int lo,
+    int hi, int K, uint64_t* bar, const int32_t* s) {
   int ix[kUnroll][4];
   const int step = kUnroll * (int)blockDim.x;
   int u = lo + (int)threadIdx.x;
   load_units<VEC>(irow, u, hi, ix);
-  ready();
+  __syncthreads();  // the plain-loaded ends of the row
+  mbar_wait(bar, 0);
   while (u < hi) {
-    store_units<VEC>(orow, u, hi, K, ix, get);
+    store_units<VEC>(orow, u, hi, K, ix, s);
     u += step;
     load_units<VEC>(irow, u, hi, ix);
   }
 }
 
-// Blocks x = c * CL + q (cluster c, rank q) of row y serve span x of it.
-template <bool VEC>
-__global__ void __launch_bounds__(kGatherThreads)
-row_gather_smem_kernel(const int32_t* __restrict__ table,
-                       const int32_t* __restrict__ idx,
-                       const int32_t* __restrict__ rows,
-                       int32_t* __restrict__ out, int G, int K, int A) {
-  extern __shared__ __align__(16) int32_t s_buf[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(s_buf);
-  int32_t* srow = s_buf + 4;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int CL = (int)cluster.num_blocks();
-  const int64_t r = blockIdx.y;
-  const int32_t* trow = table + (int64_t)source_row(rows, (int)r, G) * K;
-  if (threadIdx.x == 0) mbar_init(bar);
-  if (CL > 1) {
-    cluster.sync();  // every block's mbarrier before any multicast
-  } else {
-    __syncthreads();
-  }
-  stage_row(srow, trow, K, bar, (int)cluster.block_rank(), CL);
-  const int32_t* s = srow + stage_pad(trow);
-  int lo, hi;
-  block_span(VEC ? A / 4 : A, blockIdx.x, gridDim.x, lo, hi);
-  serve<VEC>(idx + r * A, out + r * A, lo, hi, K,
-             [&] {
-               __syncthreads();  // the plain-loaded ends of the row
-               mbar_wait(bar, 0);
-             },
-             [&](int j) { return s[j]; });
-  // no block leaves while its multicast into the others may be in flight
-  if (CL > 1) cluster.sync();
+// Loads the indices of one round of the direct path that starts at word
+// w (words w + k * blockDim, k < PER, of [.., hi); 0 past hi).
+template <int PER>
+__device__ __forceinline__ void load_direct(const int32_t* __restrict__ irow,
+                                            int w, int hi, int (&ix)[PER]) {
+  const int n = (int)blockDim.x;
+#pragma unroll
+  for (int k = 0; k < PER; ++k)
+    ix[k] = w + k * n < hi ? __ldg(irow + w + k * n) : 0;
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(kL2Threads)
-row_gather_l2_kernel(const int32_t* __restrict__ table,
-                     const int32_t* __restrict__ idx,
-                     const int32_t* __restrict__ rows,
-                     int32_t* __restrict__ out, int G, int K, int A) {
-  const int w0 = (blockIdx.x * kL2Threads + threadIdx.x) * kL2Per;
-  if (w0 >= A) return;
+// Serves words [w - threadIdx.x, hi) of one index row from the table row
+// through L2, PER indices a thread in flight, the first round's indices ix
+// already loaded from w.
+template <int PER>
+__device__ __forceinline__ void serve_direct(
+    const int32_t* __restrict__ trow, const int32_t* __restrict__ irow,
+    int32_t* __restrict__ orow, int w, int hi, int K, int (&ix)[PER]) {
+  const int n = (int)blockDim.x;
+  for (; w < hi; w += PER * n) {
+    int v[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) v[k] = __ldg(trow + clamp_row(ix[k], K));
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      if (w + k * n < hi) orow[w + k * n] = v[k];
+    load_direct<PER>(irow, w + PER * n, hi, ix);
+  }
+}
+
+// Direct launches: block x of row y serves span x of it.
+template <int PER>
+__global__ void __launch_bounds__(kDirectThreads)
+row_gather_kernel(const int32_t* __restrict__ table,
+                  const int32_t* __restrict__ idx,
+                  const int32_t* __restrict__ rows,
+                  int32_t* __restrict__ out, int G, int K, int A) {
   const int64_t r = blockIdx.y;
   const int32_t* trow = table + (int64_t)source_row(rows, (int)r, G) * K;
-  const int32_t* irow = idx + r * A + w0;
-  int32_t* orow = out + r * A + w0;
-  uint64_t keep, stream;
-  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
-      : "=l"(keep));
-  asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-      : "=l"(stream));
-  const int n = min(kL2Per, A - w0);
-  int ix[kL2Per], v[kL2Per];
-  if (VEC && n == kL2Per) {
-#pragma unroll
-    for (int h = 0; h < kL2Per; h += 4) {
-      asm volatile(
-          "ld.global.L1::no_allocate.L2::cache_hint.v4.s32 {%0, %1, %2, %3},"
-          " [%4], %5;\n"
-          : "=r"(ix[h]), "=r"(ix[h + 1]), "=r"(ix[h + 2]), "=r"(ix[h + 3])
-          : "l"(irow + h), "l"(stream));
+  int lo, hi;
+  block_span(A, blockIdx.x, gridDim.x, lo, hi);
+  const int w = lo + (int)threadIdx.x;
+  int ix[PER];
+  load_direct<PER>(idx + r * A, w, hi, ix);
+  serve_direct<PER>(trow, idx + r * A, out + r * A, w, hi, K, ix);
+}
+
+// Staging launches: block x of row y serves span x of it (spans of over
+// 4 words a thread).  Each block loads its first direct round, then stages
+// the row in its dynamic shared memory and serves from there unless its
+// first 32 indices (warp 0's) are nondecreasing; then it reads directly.
+template <bool VEC>
+__global__ void __launch_bounds__(kGatherThreads)
+row_gather_staged_kernel(const int32_t* __restrict__ table,
+                         const int32_t* __restrict__ idx,
+                         const int32_t* __restrict__ rows,
+                         int32_t* __restrict__ out, int G, int K, int A) {
+  extern __shared__ __align__(16) int32_t s_buf[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(s_buf);
+  int* staged = s_buf + 2;
+  const int64_t r = blockIdx.y;
+  const int32_t* trow = table + (int64_t)source_row(rows, (int)r, G) * K;
+  const int32_t* irow = idx + r * A;
+  int32_t* orow = out + r * A;
+  constexpr int W = VEC ? 4 : 1;
+  int lo, hi;
+  block_span(A / W, blockIdx.x, gridDim.x, lo, hi);
+  const int w = lo * W + (int)threadIdx.x;
+  int ix[kDirectPer];
+  load_direct<kDirectPer>(irow, w, hi * W, ix);
+  if (threadIdx.x < 32) {
+    const int prev = __shfl_up_sync(0xffffffffu, ix[0], 1);
+    const bool sorted =
+        __all_sync(0xffffffffu, threadIdx.x == 0 || prev <= ix[0]);
+    if (threadIdx.x == 0) {
+      *staged = !sorted;
+      if (!sorted) mbar_init(bar);
     }
-  } else {
-#pragma unroll
-    for (int k = 0; k < kL2Per; ++k) ix[k] = k < n ? irow[k] : 0;
   }
-#pragma unroll
-  for (int k = 0; k < kL2Per; ++k) {
-    asm volatile("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;\n"
-                 : "=r"(v[k])
-                 : "l"(trow + clamp_row(ix[k], K)), "l"(keep));
-  }
-  if (VEC && n == kL2Per) {
-#pragma unroll
-    for (int h = 0; h < kL2Per; h += 4) {
-      asm volatile(
-          "st.global.L2::cache_hint.v4.s32 [%0], {%1, %2, %3, %4}, %5;\n" ::
-              "l"(orow + h),
-          "r"(v[h]), "r"(v[h + 1]), "r"(v[h + 2]), "r"(v[h + 3]),
-          "l"(stream)
-          : "memory");
-    }
+  __syncthreads();
+  if (*staged) {
+    int32_t* srow = s_buf + 4;
+    stage_row(srow, trow, K, bar);
+    serve_staged<VEC>(irow, orow, lo, hi, K, bar, srow + stage_pad(trow));
   } else {
-    for (int k = 0; k < n; ++k) orow[k] = v[k];
+    serve_direct<kDirectPer>(trow, irow, orow, w, hi * W, K, ix);
   }
 }
 
@@ -413,148 +400,79 @@ __global__ void genome_map_gather_kernel(const int32_t* __restrict__ skid,
   out[r * P + p] = __ldg(jw + r * K + j);
 }
 
-// K1's launches.  Each body fills the card once: `blocks` is the number
-// of blocks that the SMs hold at a time, shared among the R rows.
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
+// K1's launches.  Staging (blocks of kGatherThreads) is offered where the
+// row fits in a block's shared memory and where each block of one wave
+// (the blocks the SMs hold at a time, shared among the R rows) then serves
+// more indices than the row has 32-byte sectors (a random read pulls a
+// sector per index; the copy moves the row once) and at least 4 a thread
+// (else the copy's round trip outweighs what it saves).  Direct launches
+// use blocks of kDirectThreads.
+struct Card {
+  int sms, smem_sm, reserved, threads_sm;
+};
+
+const Card& card() {
+  static Card c = [] {
+    Card d{};
     int dev = 0;
     cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
+    cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaDeviceGetAttribute(&d.smem_sm,
+                           cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    cudaDeviceGetAttribute(&d.reserved,
+                           cudaDevAttrReservedSharedMemoryPerBlock, dev);
+    cudaDeviceGetAttribute(&d.threads_sm,
+                           cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+    return d;
+  }();
+  return c;
 }
 
 int smem_bytes(int words) { return (16 + 4 * (words + 3) + 15) & ~15; }
 
-template <class Kern>
-cudaError_t allow_smem(Kern kern, int bytes, int& resident) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kern,
-                                                    kGatherThreads, bytes);
-  if (resident < 1) resident = 1;
-  return e;
-}
-
-// The most clusters of cl blocks (of `bytes` shared memory each) that the
-// card holds at once.
 template <bool VEC>
-int max_clusters(int cl, int bytes) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cl, 1);
-  cfg.blockDim = dim3(kGatherThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = cl;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  int n = 0;
-  if (cudaOccupancyMaxActiveClusters(&n, row_gather_smem_kernel<VEC>, &cfg)
-      != cudaSuccess) {
-    cudaGetLastError();  // a size the card cannot hold: no cluster
-    n = 0;
-  }
-  return n;
-}
-
-// The smem body's launch: its shared memory, and in one wave nb = (blocks
-// the SMs hold) / R spans a row (at least one, at most one a thread's
-// unit), in clusters of the largest cl in 8, 4, 2 whose R * (nb / cl)
-// clusters the card holds at once (else 1, no cluster).
-struct SmemPlan {
-  int bytes, nb, cl;
-};
-
-template <bool VEC>
-cudaError_t smem_plan(int R, int K, int A, SmemPlan& p) {
-  p.bytes = smem_bytes(K);
-  // per instance: the shared memory set, blocks an SM holds, and clusters
-  // the card holds by size (index log2 of the size)
-  static int set_bytes = -1, resident = 1, clusters[4];
-  if (p.bytes != set_bytes) {
-    cudaError_t e =
-        allow_smem(row_gather_smem_kernel<VEC>, p.bytes, resident);
-    if (e != cudaSuccess) return e;
-    for (int i = 1; i < 4; ++i)
-      clusters[i] = max_clusters<VEC>(1 << i, p.bytes);
-    set_bytes = p.bytes;
-  }
-  const int units = VEC ? A / 4 : A;
-  p.nb = max(1, min(sm_count() * resident / R, units / kGatherThreads));
-  p.cl = 1;
-  for (int i = 3; i >= 1; --i) {
-    const int c = 1 << i;
-    if (p.nb >= c && (int64_t)R * (p.nb / c) <= clusters[i]) {
-      p.cl = c;
-      break;
+int gather(const int32_t* table, const int32_t* idx, const int32_t* rows,
+           int32_t* out, int G, int R, int K, int A, cudaStream_t st) {
+  const Card& c = card();
+  if (K <= kRowSmemWords) {
+    const int b = smem_bytes(K);
+    const int resident = max(1, min(c.threads_sm / kGatherThreads,
+                                    c.smem_sm / (b + c.reserved)));
+    const int units = VEC ? A / 4 : A;
+    const int nb = max(1, min(c.sms * resident / R, units / kGatherThreads));
+    const int span = A / nb;
+    if (span > K / 8 && span >= 4 * kGatherThreads) {
+      // once, at the first launch
+      static const cudaError_t set = cudaFuncSetAttribute(
+          row_gather_staged_kernel<VEC>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      if (set != cudaSuccess) return (int)set;
+      row_gather_staged_kernel<VEC><<<dim3(nb, R), kGatherThreads, b, st>>>(
+          table, idx, rows, out, G, K, A);
+      return (int)cudaGetLastError();
     }
   }
-  return cudaSuccess;
-}
-
-template <bool VEC>
-int gather_smem(const int32_t* table, const int32_t* idx,
-                const int32_t* rows, int32_t* out, int G, int R, int K,
-                int A, cudaStream_t st) {
-  SmemPlan p;
-  cudaError_t e = smem_plan<VEC>(R, K, A, p);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((p.nb / p.cl) * p.cl, R);
-  if (p.cl == 1) {
-    row_gather_smem_kernel<VEC><<<grid, kGatherThreads, p.bytes, st>>>(
-        table, idx, rows, out, G, K, A);
-    return (int)cudaGetLastError();
+  // direct: one index a thread where that fills the card at most once,
+  // else kDirectPer, one block a kDirectThreads * that many indices
+  if ((int64_t)A * R <= (int64_t)c.sms * c.threads_sm) {
+    row_gather_kernel<1>
+        <<<dim3((A + kDirectThreads - 1) / kDirectThreads, R),
+            kDirectThreads, 0, st>>>(table, idx, rows, out, G, K, A);
+  } else {
+    constexpr int per_block = kDirectThreads * kDirectPer;
+    row_gather_kernel<kDirectPer>
+        <<<dim3((A + per_block - 1) / per_block, R), kDirectThreads, 0,
+            st>>>(table, idx, rows, out, G, K, A);
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kGatherThreads);
-  cfg.dynamicSmemBytes = p.bytes;
-  cfg.stream = st;
-  cudaLaunchAttribute at[1];
-  at[0].id = cudaLaunchAttributeClusterDimension;
-  at[0].val.clusterDim.x = p.cl;
-  at[0].val.clusterDim.y = 1;
-  at[0].val.clusterDim.z = 1;
-  cfg.attrs = at;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, row_gather_smem_kernel<VEC>, table, idx, rows,
-                         out, G, K, A);
-  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
-}
-
-template <bool VEC>
-int gather_l2(const int32_t* table, const int32_t* idx, const int32_t* rows,
-              int32_t* out, int G, int R, int K, int A, cudaStream_t st) {
-  const int per_block = kL2Threads * kL2Per;
-  row_gather_l2_kernel<VEC>
-      <<<dim3((A + per_block - 1) / per_block, R), kL2Threads, 0, st>>>(
-          table, idx, rows, out, G, K, A);
-  return (int)cudaGetLastError();
-}
-
-template <bool VEC>
-int gather_body(int body, const int32_t* table, const int32_t* idx,
-                const int32_t* rows, int32_t* out, int G, int R, int K,
-                int A, cudaStream_t st) {
-  if (body == 0 && K <= kRowSmemWords)
-    return gather_smem<VEC>(table, idx, rows, out, G, R, K, A, st);
-  if (body == 1) return gather_l2<VEC>(table, idx, rows, out, G, R, K, A, st);
-  return (int)cudaErrorInvalidValue;  // the body cannot take this width
 }
 
 }  // namespace
 
-// body: 0 smem (K <= kRowSmemWords), 1 L2 (any K); kernels/gather.py
-// row_gather_body picks it from K.  rows: int32 (R,) or null for the identity (then G == R).
+// rows: int32 (R,) or null for the identity (then G == R).
 extern "C" int skt_row_gather(const void* table, const void* idx,
                               const void* rows, void* out, int G, int R,
-                              int K, int A, int body, void* stream) {
+                              int K, int A, void* stream) {
   if (R <= 0 || A <= 0) return (int)cudaGetLastError();
   if (K < 1 || G < 1) return (int)cudaErrorInvalidValue;
   // int4 index loads and output stores need every row 16-byte aligned
@@ -565,19 +483,8 @@ extern "C" int skt_row_gather(const void* table, const void* idx,
   const auto m = (const int32_t*)rows;
   const auto o = (int32_t*)out;
   const auto st = (cudaStream_t)stream;
-  return vec ? gather_body<true>(body, t, i, m, o, G, R, K, A, st)
-             : gather_body<false>(body, t, i, m, o, G, R, K, A, st);
-}
-
-// The cluster size of the smem body's launch for R index rows of A words
-// (16-byte aligned) on a table of K-word rows: 1 without a cluster, 0
-// where K takes the L2 body, minus the CUDA error where a query failed.
-extern "C" int skt_row_gather_cluster(int R, int K, int A) {
-  if (R <= 0 || A <= 0 || K < 1 || K > kRowSmemWords) return 0;
-  SmemPlan p;
-  const cudaError_t e = A % 4 == 0 ? smem_plan<true>(R, K, A, p)
-                                   : smem_plan<false>(R, K, A, p);
-  return e == cudaSuccess ? p.cl : -(int)e;
+  return vec ? gather<true>(t, i, m, o, G, R, K, A, st)
+             : gather<false>(t, i, m, o, G, R, K, A, st);
 }
 
 extern "C" int skt_row_scatter_multi(const void* idx, const void* vals,

@@ -38,8 +38,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures of every entry point (pointers and the stream as void*)
 _SIGNATURES = {
-    "skt_row_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "skt_row_gather_cluster": [_I, _I, _I],
+    "skt_row_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "skt_row_scatter_multi": [_P, _P, _P, _I, _I, _I, _I, _P],
     "skt_windowed_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "skt_genome_map_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

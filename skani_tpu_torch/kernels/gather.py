@@ -29,10 +29,10 @@ chip has no fast gather; their shape predicates, plane choices and VMEM
 sizing exist only for that reason and do not carry over.  On the card all
 are memory-bound kernels (csrc/gather.cu): coalesced index and output
 streams, row-local table reads (for the windowed gather's ascending
-indices, coalesced).  row_gather stages its table row in each block's
-shared memory where it fits (`row_gather_body` "smem", rows of at most
-ROW_SMEM_WORDS words; the blocks of a row copy it once a cluster), else it
-reads the row through L2 ("l2").
+indices, coalesced).  row_gather reads its table row through L2, or,
+where the row fits in a block's shared memory (ROW_SMEM_WORDS) and the
+shape makes a copy pay, from a copy that each block stages there unless
+its first 32 indices are nondecreasing.
 
 Dispatch rule: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises.  There is no fallback from one to the other.
@@ -61,27 +61,10 @@ def _check_i32(name, *ts):
             raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-#: the widest row (int32 words) that one block stages in its 227 KB of
-#: shared memory (less the mbarrier and a pad of up to 3 words)
+#: the widest row (int32 words) that a block of the row_gather kernel
+#: stages in its 227 KB of shared memory (less the mbarrier and a pad of
+#: up to 3 words); wider rows are always read through L2
 ROW_SMEM_WORDS = 58104
-_BODY_CODE = {"smem": 0, "l2": 1}
-
-
-def row_gather_body(K: int) -> str:
-    """The body of the row_gather kernel that takes rows of K words: the
-    table width alone decides it."""
-    return "smem" if K <= ROW_SMEM_WORDS else "l2"
-
-
-def row_gather_cluster(R: int, K: int, A: int) -> int:
-    """Blocks of a cluster that share one staged row when the smem body
-    gathers R index rows of A words (A a multiple of 4) from rows of K
-    words on the current CUDA device: 1 for no cluster, 0 where K takes
-    the L2 body.  For measurement; needs the card."""
-    c = _build.lib().skt_row_gather_cluster(int(R), int(K), int(A))
-    if c < 0:
-        raise RuntimeError(f"row_gather_cluster: CUDA error {-c}")
-    return c
 
 
 def row_gather_plain(table: torch.Tensor, idx: torch.Tensor,
@@ -94,15 +77,13 @@ def row_gather_plain(table: torch.Tensor, idx: torch.Tensor,
     return torch.gather(table, 1, idx.clamp(0, K - 1).long())
 
 
-def row_gather(table: torch.Tensor, idx: torch.Tensor, rows=None,
-               body=None) -> torch.Tensor:
+def row_gather(table: torch.Tensor, idx: torch.Tensor,
+               rows=None) -> torch.Tensor:
     """out[r, a] = table[rows[r], clamp(idx[r, a], 0, K - 1)] for an int32
     (G, K) table, int32 (R, A) idx and int32 (R,) rows, each row id
     clamped into [0, G); without rows, table is (R, K) and row r reads
     table row r.  Callers clip indices into range, as the TPU kernel
-    required; the clamps only guarantee that no read leaves the table.
-    `body` forces one of the kernel's bodies that can take K (for
-    measurement); by default row_gather_body(K) picks it."""
+    required; the clamps only guarantee that no read leaves the table."""
     if table.dim() != 2 or idx.dim() != 2:
         raise ValueError(f"row_gather: bad shapes {tuple(table.shape)}, "
                          f"{tuple(idx.shape)}")
@@ -122,16 +103,15 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor, rows=None,
     _check_i32("row_gather", *ts)
     G, K = table.shape
     A = idx.shape[1]
-    body = row_gather_body(K) if body is None else body
-    if R > 65535 or K < 1 or G < 1 or body not in _BODY_CODE:
+    if R > 65535 or K < 1 or G < 1:
         raise ValueError(f"row_gather: unsupported shape R={R}, G={G}, "
-                         f"K={K} or body {body!r}")
+                         f"K={K}")
     out = torch.empty((R, A), dtype=torch.int32, device=table.device)
     lib = _build.lib()
     _build.check(lib.skt_row_gather(
         table.data_ptr(), idx.data_ptr(),
         None if rows is None else rows.data_ptr(), out.data_ptr(), G, R, K,
-        A, _BODY_CODE[body], _build.stream_ptr(table.device)), "row_gather")
+        A, _build.stream_ptr(table.device)), "row_gather")
     LAUNCHES["row_gather"] += 1
     return out
 

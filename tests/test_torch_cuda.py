@@ -44,55 +44,50 @@ def test_row_gather_kernel_matches_plain(dev):
     assert torch.equal(got, gather.row_gather_plain(table, idx))
 
 
-# (G, R, K, A, rows): rows the smem body stages (<= 58104 words; the
-# widest that fits; R from 1 to 128 spans a row, in clusters of 1 to 8
-# blocks) and wider rows (L2 body), with and without the row map, R > G
-# with repeated rows, index widths A % 4 != 0 and odd K (rows that start
-# off a 16-byte boundary)
+# (G, R, K, A, rows): shapes whose launch offers staging (rows of at most
+# ROW_SMEM_WORDS words, among them the widest, where a wave's spans hold
+# more indices than the row has sectors) and shapes read directly (one
+# word wider, rows wider still, short spans; one index a thread where
+# R * A fits the card's threads once, else four), with and without the
+# row map, R > G with repeated rows, index widths A % 4 != 0 and odd K
+# (rows that start off a 16-byte boundary)
 _ROW_MAP = [
     (40, 33, 40960, 47104, True), (33, 33, 40960, 47104, False),
     (20, 33, 98304, 40960, True), (33, 33, 98304, 40960, False),
-    (5, 7, 300001, 20000, True), (7, 7, 262144, 8192, False),
-    (9, 11, 5001, 4097, True), (6, 13, 70001, 1023, True),
-    (2, 3, 5, 7, True), (3, 4, 58104, 65536, True),
-    (2, 1, 58103, 40000, True), (64, 128, 512, 512, True)]
+    (5, 7, 300001, 20000, True),
+    (3, 4, gather.ROW_SMEM_WORDS, 262144, True),
+    (3, 4, gather.ROW_SMEM_WORDS + 1, 262144, True),
+    (9, 33, 5001, 40001, True),
+    (2, 1, 30001, 200000, True), (6, 13, 70001, 1023, True),
+    (2, 3, 5, 7, True), (64, 128, 512, 512, True)]
 
 
+@pytest.mark.parametrize("order", ["random", "sorted"])
 @pytest.mark.parametrize("G,R,K,A,use_rows", _ROW_MAP)
-def test_row_gather_kernel_row_map_bodies(dev, G, R, K, A, use_rows):
-    """Every body that can take the width (the shape's own and the L2
-    body), exact against the plain version, one launch a call."""
+def test_row_gather_kernel_row_map(dev, G, R, K, A, use_rows, order):
+    """Exact against the plain version, one launch a call: random indices
+    (blocks that are offered staging stage their row) and per-row sorted
+    ones (every block reads directly), each with indices -5 and K + 7."""
     rng = np.random.default_rng(G * 7 + K + A)
     table = torch.from_numpy(synth.adversarial_words(rng, (G, K))).to(dev)
     idx_np = rng.integers(0, K, size=(R, A)).astype(np.int32)
-    idx_np[:, :min(A, 8)] = np.array(
-        [0, 1, 127, 128, K - 2, K - 1, -5, K + 7], np.int32)[:min(A, 8)]
+    if order == "sorted":
+        idx_np.sort(axis=1)
+        idx_np[:, 0], idx_np[:, -1] = -5, K + 7
+    else:
+        idx_np[:, :min(A, 8)] = np.array(
+            [0, 1, 127, 128, K - 2, K - 1, -5, K + 7], np.int32)[:min(A, 8)]
     idx = torch.from_numpy(idx_np).to(dev)
     rows = None
     if use_rows:
         r_np = rng.integers(0, G, size=R).astype(np.int32)
         r_np[:3] = np.array([0, G - 1, 0], np.int32)[:R]
         rows = torch.from_numpy(r_np).to(dev)
-    want = gather.row_gather_plain(table, idx, rows)
-    own = gather.row_gather_body(K)
-    for body in sorted({own, "l2"}):
-        n0 = gather.LAUNCHES["row_gather"]
-        got = gather.row_gather(table, idx, rows,
-                                body=None if body == own else body)
-        torch.cuda.synchronize()
-        assert gather.LAUNCHES["row_gather"] == n0 + 1
-        assert torch.equal(got, want), body
-
-
-def test_row_gather_smem_body_forms_clusters(dev):
-    """The smem body shares a staged row over a cluster where the card
-    holds one wave of them (one row of 40000 indices: several blocks),
-    not for 128 short rows (one block a row) nor for rows it cannot
-    stage."""
-    assert gather.row_gather_cluster(1, 58103, 40000) > 1
-    assert gather.row_gather_cluster(33, 40960, 47104) >= 1
-    assert gather.row_gather_cluster(128, 512, 512) == 1
-    assert gather.row_gather_cluster(33, 98304, 40960) == 0
+    n0 = gather.LAUNCHES["row_gather"]
+    got = gather.row_gather(table, idx, rows)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES["row_gather"] == n0 + 1
+    assert torch.equal(got, gather.row_gather_plain(table, idx, rows))
 
 
 def test_row_gather_kernel_row_map_clamps_rows(dev):

@@ -88,15 +88,6 @@ def test_row_gather_row_map_matches_pallas_on_the_rows_copy():
         np.take_along_axis(table[[0, G - 1]], clip, 1))
 
 
-def test_row_gather_bodies_by_width():
-    """The kernel body is picked by the table width alone: one block's
-    shared memory up to 58104 words (the default batch's bpk rows, 40960),
-    L2 beyond (dense_cs, 98304; bpk at --slow, 167936)."""
-    assert [gather.row_gather_body(k) for k in (
-        1, 40960, 58104, 58105, 98304, 167936)] == [
-        "smem", "smem", "smem", "l2", "l2", "l2"]
-
-
 @pytest.mark.parametrize("bad", ["rows_shape", "table_rows"])
 def test_row_gather_refuses_bad_row_maps(bad):
     t = torch.zeros((4, 16), dtype=torch.int32)
