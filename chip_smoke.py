@@ -71,8 +71,14 @@ line):
              each site's device time, and on the default batch's own two
              calls (captured from its
              phase_a), the rows' copy then the gather beside the
-             row-mapped call; the 2-plane compact DP also on the default
-             batch's own DP inputs; the padded DP at the
+             row-mapped call; the fused two-payload fill on the default
+             batch's own targets and payloads, the single-payload fill on
+             the contigs batch's and the genome-map gather on the slow
+             batch's (each captured from its phase_a); each scatter beside
+             the one torch call that computes it (scatter_ into a zeroed
+             buffer with a column for the dropped targets); the 2-plane
+             compact DP also on the default batch's own DP inputs; the
+             padded DP at the
              many-contig slow batch's domain and at the `-c 20` batch's; the
              DP rows carry their SASS instructions per step (the 2-plane
              compact DP's per phase) and the steps their lanes take.  Then
@@ -607,8 +613,13 @@ def joins(batch):
                       "P": eng.db.P, "U": eng.db.U, "K": eng.db.K}
 
 
-_OWN_KERNELS = ("row_gather_kernel", "row_gather_staged_kernel",
-                "row_scatter_multi_kernel",
+# this repository's kernels by name, the first tag a name holds taking it:
+# K5's launch of row_gather_kernel (1024 threads) before K1's; the scatter
+# and K5 kernels of earlier trees (row_scatter_multi_kernel and its
+# zero_kernel, genome_map_gather_kernel) so that a parent tree reads alike
+_OWN_KERNELS = ("row_gather_kernel<4, 1024>", "row_gather_kernel",
+                "row_gather_staged_kernel", "row_scatter_kernel",
+                "row_scatter_multi_kernel", "zero_kernel",
                 "windowed_gather_kernel", "genome_map_gather_kernel",
                 "dp_compact_kernel", "dp_wide_kernel",
                 "dp_chain_packed_kernel", "dp_chain_kernel", "expand_kernel")
@@ -691,9 +702,9 @@ def profile_phase_a(fn, reps: int) -> dict:
     # this repository's own kernels by name (ms per batch)
     own = {}
     for k, t, _n in dev_us:
-        for tag in _OWN_KERNELS:
-            if tag in k:
-                own[tag] = own.get(tag, 0.0) + t / reps / 1e3
+        tag = next((g for g in _OWN_KERNELS if g in k), None)
+        if tag is not None:
+            own[tag] = own.get(tag, 0.0) + t / reps / 1e3
     return {"span_ms": span_ms, "kernel_ms": total_ms, "own_kernels_ms": own,
             "device_busy_share": total_ms / span_ms if span_ms else None,
             "kernels_per_batch": sum(n for _k, _t, n in dev_us) / reps,
@@ -914,7 +925,8 @@ def padded_steps(rcv) -> dict:
 
 
 @phase("kernels")
-def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
+def kernels(batch, slow_batch, ct_batch, cs_batch, c20_batch, bw, rate,
+            sass, name):
     """Every kernel against its plain version on the card.  K1-K3, the
     single-payload scatter, the packed padded DP and the expansion kernel
     at the default batch's shapes (the only path that gives the scatters P
@@ -1064,47 +1076,133 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
         replaces="skani_tpu/kernels/gather_pallas.py:601", **acc))
     del calls
 
+    def scatter_bytes(idx, V, K):
+        """Targets read once, the payloads of the kept targets (in [0, K))
+        read once, the (R, V, K) output written once."""
+        kept = int(((idx >= 0) & (idx < K)).sum())
+        return 4 * (idx.numel() + V * kept + idx.shape[0] * V * K)
+
+    def scatter_library(idx, vals, K):
+        """The one torch call that computes the scatter: scatter_ into a
+        preallocated zeroed (R, V, K + 1) buffer, whose last column takes
+        the dropped targets, redirected before the timed call."""
+        R, V, P = vals.shape
+        tl = torch.where((idx >= 0) & (idx < K), idx,
+                         K).long()[:, None, :].expand(R, V, P)
+        buf = torch.zeros((R, V, K + 1), dtype=torch.int32, device=dev)
+        return lambda: buf.scatter_(2, tl, vals)
+
+    def grab_calls(batch_, names):
+        """The arguments of the first call of each device_pipeline kernel
+        wrapper in `names` that one phase_a of batch_ makes, cloned."""
+        beng, _g, bargs, bab, _w = batch_
+        got, saved = {}, {n: getattr(device_pipeline, n) for n in names}
+
+        def wrap(n):
+            def f(*a, **k):
+                got.setdefault(n, [x.clone() if torch.is_tensor(x) else x
+                                   for x in a])
+                return saved[n](*a, **k)
+            return f
+
+        for n in names:
+            setattr(device_pipeline, n, wrap(n))
+        try:
+            phase_a(beng.db.arrays, bab, **bargs)
+        finally:
+            for n, f in saved.items():
+                setattr(device_pipeline, n, f)
+        missing = [n for n in names if n not in got]
+        if missing:
+            raise RuntimeError(f"the batch made no call of {missing}")
+        return got
+
     # row_scatter_multi: the fused two-payload fill, (R, 2, P) -> (R, 2, A)
     sidx = t(synth.unique_targets(rng, R, P, A))
     svals = t(synth.adversarial_words(rng, (R, 2, P)))
-    err, ms, pms, _ = compare(
+    err, ms, pms, lms = compare(
         "row_scatter_multi",
         lambda: gather.row_scatter_multi(sidx, svals, A),
-        lambda: gather.row_scatter_multi_plain(sidx, svals, A), 20, 20)
+        lambda: gather.row_scatter_multi_plain(sidx, svals, A), 20, 20,
+        library=scatter_library(sidx, svals, A))
     rows.append(dict(name="row_scatter_multi",
                      shape=[[R, P], [R, 2, P], [R, 2, A]], err=err, ms=ms,
-                     plain_ms=pms, library_ms=None,
-                     bytes=4 * (R * P + 2 * R * P + 2 * R * A),
+                     plain_ms=pms, library_ms=lms,
+                     bytes=scatter_bytes(sidx, 2, A),
                      ops=3 * R * P, per_batch=1,
                      source="skani_tpu_torch/csrc/gather.cu",
                      replaces="skani_tpu/kernels/gather_pallas.py:475"))
 
+    # the default batch's own fused fill: phase A's targets (ascending over
+    # the emitting positions, the dropped sentinel A between them) and its
+    # two payloads, captured from its phase_a
+    fidx, fvals, fK = grab_calls(batch, ["row_scatter_multi"])[
+        "row_scatter_multi"]
+    err, ms, pms, lms = compare(
+        "row_scatter_multi[batch]",
+        lambda: gather.row_scatter_multi(fidx, fvals, fK),
+        lambda: gather.row_scatter_multi_plain(fidx, fvals, fK), 20, 20,
+        library=scatter_library(fidx, fvals, fK))
+    rows.append(dict(name="row_scatter_multi[batch]",
+                     counter="row_scatter_multi",
+                     shape=[list(fidx.shape), list(fvals.shape),
+                            [fidx.shape[0], fvals.shape[1], fK]],
+                     err=err, ms=ms, plain_ms=pms, library_ms=lms,
+                     bytes=scatter_bytes(fidx, fvals.shape[1], fK),
+                     ops=3 * fidx.numel(), per_batch=1,
+                     kept_targets=int(((fidx >= 0) & (fidx < fK)).sum()),
+                     source="skani_tpu_torch/csrc/gather.cu",
+                     replaces="skani_tpu/kernels/gather_pallas.py:475"))
+    del fidx, fvals
+
     # the narrow-dot TPU scatter (any payload count) has the wide one's
-    # contract and the same wrapper: held here at three payloads
+    # contract and the same wrapper: held here at three payloads.  The main
+    # path never runs V = 3: the counter's launches are K2's (V = 2)
     s3vals = t(synth.adversarial_words(rng, (R, 3, P)))
-    err, ms, pms, _ = compare(
+    err, ms, pms, lms = compare(
         "row_scatter_multi[V=3]",
         lambda: gather.row_scatter_multi(sidx, s3vals, A),
-        lambda: gather.row_scatter_multi_plain(sidx, s3vals, A), 20, 20)
+        lambda: gather.row_scatter_multi_plain(sidx, s3vals, A), 20, 20,
+        library=scatter_library(sidx, s3vals, A))
     rows.append(dict(name="row_scatter_multi[V=3]", counter="row_scatter_multi",
                      shape=[[R, P], [R, 3, P], [R, 3, A]], err=err, ms=ms,
-                     plain_ms=pms, library_ms=None,
-                     bytes=4 * (R * P + 3 * R * P + 3 * R * A),
-                     ops=4 * R * P, per_batch=1,
+                     plain_ms=pms, library_ms=lms,
+                     bytes=scatter_bytes(sidx, 3, A),
+                     ops=4 * R * P, per_batch=0, own_launches=0,
+                     launches_are="row_scatter_multi at V = 2 (K2)",
                      source="skani_tpu_torch/csrc/gather.cu",
                      replaces="skani_tpu/kernels/gather_pallas.py:385"))
 
     # row_scatter: the single-payload fill (fused_apk=False), (R, P) ->
     # (R, A); dropped targets (negative and >= A), top-bit payloads
     s1vals = svals[:, 0].contiguous()
-    err, ms, pms, _ = compare(
+    err, ms, pms, lms = compare(
         "row_scatter", lambda: gather.row_scatter(sidx, s1vals, A),
-        lambda: gather.row_scatter_plain(sidx, s1vals, A), 20, 20)
+        lambda: gather.row_scatter_plain(sidx, s1vals, A), 20, 20,
+        library=scatter_library(sidx, s1vals[:, None], A))
     rows.append(dict(name="row_scatter", shape=[[R, P], [R, P], [R, A]],
-                     err=err, ms=ms, plain_ms=pms, library_ms=None,
-                     bytes=4 * (2 * R * P + R * A), ops=2 * R * P,
+                     err=err, ms=ms, plain_ms=pms, library_ms=lms,
+                     bytes=scatter_bytes(sidx, 1, A), ops=2 * R * P,
                      per_batch=1, source="skani_tpu_torch/csrc/gather.cu",
                      replaces="skani_tpu/kernels/gather_pallas.py:302"))
+
+    # the contigs batch's own single-payload fill (its unpacked database
+    # takes row_scatter), captured from its phase_a
+    cidx, cvals, cK = grab_calls(ct_batch, ["row_scatter"])["row_scatter"]
+    err, ms, pms, lms = compare(
+        "row_scatter[batch]", lambda: gather.row_scatter(cidx, cvals, cK),
+        lambda: gather.row_scatter_plain(cidx, cvals, cK), 20, 20,
+        library=scatter_library(cidx, cvals[:, None], cK))
+    rows.append(dict(name="row_scatter[batch]", counter="row_scatter",
+                     shape=[list(cidx.shape), list(cvals.shape),
+                            [cidx.shape[0], cK]],
+                     err=err, ms=ms, plain_ms=pms, library_ms=lms,
+                     bytes=scatter_bytes(cidx, 1, cK),
+                     ops=2 * cidx.numel(), per_batch=1,
+                     kept_targets=int(((cidx >= 0) & (cidx < cK)).sum()),
+                     source="skani_tpu_torch/csrc/gather.cu",
+                     replaces="skani_tpu/kernels/gather_pallas.py:302"))
+    del cidx, cvals
 
     # dp_chain_compact: chunked streams with segment-crossing chunks, and
     # the real default batch's own DP inputs (captured from its phase_a)
@@ -1282,6 +1380,13 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
                      source="skani_tpu_torch/csrc/gather.cu",
                      replaces="skani_tpu/kernels/gather_pallas.py:179"))
 
+    def gmap_bytes(skid_np, a_np, K):
+        """Each distinct genome's skid row once, a_idx, the 32-byte jw
+        sectors these indices touch, out."""
+        R, P = a_np.size, skid_np.shape[1]
+        return (4 * (np.unique(a_np).size * P + R + R * P)
+                + _SECTOR * _sectors(R, K, skid_np[a_np]))
+
     # genome_map_gather: skid (G, P), a_idx (R,) with repeated genomes, jw
     # (R, K) -> (R, P); padding positions (skid == 0) in every genome
     skid_np = rng.integers(0, K, size=(G, P)).astype(np.int32)
@@ -1298,13 +1403,36 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
     rows.append(dict(name="genome_map_gather",
                      shape=[[G, P], [R], [R, K], [R, P]], err=err, ms=ms,
                      plain_ms=pms, library_ms=lms,
-                     # each distinct genome's skid row once, a_idx, the jw
-                     # sectors these indices touch, out
-                     bytes=4 * (np.unique(a_np).size * P + R + R * P)
-                     + _SECTOR * _sectors(R, K, skid_np[a_np]),
+                     bytes=gmap_bytes(skid_np, a_np, K),
                      ops=2 * R * P, per_batch=1,
+                     dims={"G": G, "R": R, "P": P, "K": K,
+                           "distinct_genomes": int(np.unique(a_np).size)},
                      source="skani_tpu_torch/csrc/gather.cu",
                      replaces="skani_tpu/kernels/gather_pallas.py:561"))
+
+    # the slow batch's own genome-map gather (its merge join's position
+    # map), captured from its phase_a
+    gskid, ga, gjw = grab_calls(slow_batch, ["genome_map_gather"])[
+        "genome_map_gather"]
+    ga_np = np.clip(ga.cpu().numpy(), 0, gskid.shape[0] - 1)
+    gl = ga.long()
+    err, ms, pms, lms = compare(
+        "genome_map_gather[batch]",
+        lambda: gather.genome_map_gather(gskid, ga, gjw),
+        lambda: gather.genome_map_gather_plain(gskid, ga, gjw), 20, 20,
+        library=lambda: torch.gather(gjw, 1, gskid[gl].long()))
+    (gG, gP), (gR, gK) = gskid.shape, gjw.shape
+    rows.append(dict(name="genome_map_gather[batch]",
+                     counter="genome_map_gather",
+                     shape=[[gG, gP], [gR], [gR, gK], [gR, gP]], err=err,
+                     ms=ms, plain_ms=pms, library_ms=lms,
+                     bytes=gmap_bytes(gskid.cpu().numpy(), ga_np, gK),
+                     ops=2 * gR * gP, per_batch=1,
+                     dims={"G": gG, "R": gR, "P": gP, "K": gK,
+                           "distinct_genomes": int(np.unique(ga_np).size)},
+                     source="skani_tpu_torch/csrc/gather.cu",
+                     replaces="skani_tpu/kernels/gather_pallas.py:561"))
+    del gskid, ga, gjw, gl
 
     # dp_chain_compact_wide at the slow batch's shape (ring 128); its plain
     # version walks S + H steps of ~50 launches each, so it runs once
@@ -1432,16 +1560,17 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
     for r in range(R):
         ref[r][:, tgt_np[r]] = sv_np[r]
     tgt, sv = t(tgt_np), t(sv_np)
-    err, ms, pms, _ = compare(
+    err, ms, pms, lms = compare(
         "K12 scatter_pc", lambda: gather.row_scatter_multi(tgt, sv, A),
-        lambda: gather.row_scatter_multi_plain(tgt, sv, A), 20, 20)
+        lambda: gather.row_scatter_multi_plain(tgt, sv, A), 20, 20,
+        library=scatter_library(tgt, sv, A))
     if not np.array_equal(gather.row_scatter_multi(tgt, sv, A).cpu().numpy(),
                           ref):
         raise RuntimeError("K12 scatter_pc: differs from the reference")
     rows.append(dict(name="K12 scatter_pc", counter="row_scatter_multi",
                      shape=[[R, P], [R, 2, P], [R, 2, A]], err=err, ms=ms,
-                     plain_ms=pms, library_ms=None, per_batch=0,
-                     bytes=4 * (R * P + 2 * R * P + 2 * R * A),
+                     plain_ms=pms, library_ms=lms, per_batch=0,
+                     bytes=scatter_bytes(tgt, 2, A),
                      ops=3 * R * P, source="skani_tpu_torch/csrc/gather.cu",
                      replaces=k12 + "round5.py:155"))
     # one lane's step chain alone (one warp on the card), 2048 valid
@@ -1516,7 +1645,10 @@ def kernels(batch, slow_batch, cs_batch, c20_batch, bw, rate, sass, name):
               "warps_per_sm": r.get("warps_per_sm"),
               "issue_per_sm_cycle": r.get("issue_per_sm_cycle"),
               "sites": r.get("sites"), "before_ms": r.get("before_ms"),
-              "before_device_ms": r.get("before_device_ms"), "card": name})
+              "before_device_ms": r.get("before_device_ms"),
+              "dims": r.get("dims"), "kept_targets": r.get("kept_targets"),
+              "own_launches": r.get("own_launches"),
+              "launches_are": r.get("launches_are"), "card": name})
     return rows, {"kernels_checked": len(rows), "tolerance": 0,
                   "one_lane_step": lane,
                   "dp_chain_compact_wide_variants": variants}
@@ -1558,8 +1690,9 @@ def main() -> int:
         batch = batches["default"]
         by_path["padded"] = padded(batch, sets, a.seed)
     by_path["joins"] = joins(batch)
-    rows = kernels(batch, batches["slow"], batches["contigs_slow"],
-                   batches["c20"], bw, rate, sass, name)
+    rows = kernels(batch, batches["slow"], batches["contigs"],
+                   batches["contigs_slow"], batches["c20"], bw, rate, sass,
+                   name)
     table = []
     for r in rows:
         n = {k: v[r["counter"]] for k, v in by_path.items()
@@ -1578,7 +1711,8 @@ def main() -> int:
                "library_device_ms_source": r["library_device_ms_source"]}
         for k in ("device_ms_events", "sass_per_step", "sass_per_column",
                   "steps", "lanes", "warps_per_sm", "issue_per_sm_cycle",
-                  "sites", "before_ms", "before_device_ms"):
+                  "sites", "before_ms", "before_device_ms", "dims",
+                  "own_launches", "launches_are"):
             if r.get(k) is not None:
                 row[k] = r[k]
         table.append(row)

@@ -3,16 +3,18 @@
 // skt_row_gather replaces skani_tpu/kernels/gather_pallas.py
 // mxu_row_gather (K1): out[r, a] = table[rows[r], idx[r, a]], with rows
 // the identity when none is given.
+// skt_genome_map_gather replaces gather_pallas.py genome_map_gather (K5):
+// out[r, p] = jw[r, skid[a_idx[r], p]], which is K1's gather with a map
+// on the INDEX rows (index row a_idx[r] of skid) instead of the table's;
+// it runs K1's direct kernel in a launch of its own (below).
 // skt_row_scatter_multi replaces gather_pallas.py
 // mxu_row_scatter_multi_wide (K2): out[r, v, idx[r, p]] = vals[r, v, p],
-// zeros elsewhere, targets outside [0, K) dropped.  With V = 1 the same
-// kernel serves gather_pallas.py mxu_row_scatter (K6), and as it stands
-// mxu_row_scatter_multi (K7), whose contract is K2's.
+// zeros elsewhere, targets outside [0, K) dropped.  The same kernel serves
+// gather_pallas.py mxu_row_scatter (K6) at V = 1 and
+// mxu_row_scatter_multi (K7), whose contract is K2's, at V = 3.
 // skt_windowed_gather replaces gather_pallas.py windowed_sorted_gather
 // (K4): the gather for per-row nondecreasing indices that reads 0 outside
 // a per-tile window and raises a per-row overflow flag.
-// skt_genome_map_gather replaces gather_pallas.py genome_map_gather (K5):
-// out[r, p] = jw[r, skid[a_idx[r], p]].
 //
 // The TPU versions are one-hot byte-plane matrix products because that
 // chip has no fast gather.  Hopper has one, so the kernels implement the
@@ -43,7 +45,8 @@
 // measured slower wherever the inputs were still in L2.
 // `rows` (int32, clamped into [0, G)) maps output row r to table row
 // rows[r], so callers pass a device table and the batch's genome ids
-// instead of a per-batch copy of the rows.
+// instead of a per-batch copy of the rows; `irows` (clamped into [0, Gi))
+// maps it to index row irows[r] the same way (K5's a_idx).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,6 +56,7 @@ namespace {
 
 constexpr int kGatherThreads = 1024;  // a block of a staging launch
 constexpr int kDirectThreads = 256;   // a block of a direct launch
+constexpr int kRowThreads = 1024;     // a block of K5's row-affine launch
 constexpr int kUnroll = 4;            // staged: index units in flight
 constexpr int kDirectPer = 4;         // direct: indices in flight
 constexpr int kBulkChunk = 16384;     // bytes per cp.async.bulk
@@ -240,20 +244,22 @@ __device__ __forceinline__ void serve_direct(
 }
 
 // Direct launches: block x of row y serves span x of it.
-template <int PER>
-__global__ void __launch_bounds__(kDirectThreads)
+template <int PER, int NT>
+__global__ void __launch_bounds__(NT)
 row_gather_kernel(const int32_t* __restrict__ table,
                   const int32_t* __restrict__ idx,
                   const int32_t* __restrict__ rows,
-                  int32_t* __restrict__ out, int G, int K, int A) {
+                  const int32_t* __restrict__ irows,
+                  int32_t* __restrict__ out, int G, int Gi, int K, int A) {
   const int64_t r = blockIdx.y;
   const int32_t* trow = table + (int64_t)source_row(rows, (int)r, G) * K;
+  const int32_t* irow = idx + (int64_t)source_row(irows, (int)r, Gi) * A;
   int lo, hi;
   block_span(A, blockIdx.x, gridDim.x, lo, hi);
   const int w = lo + (int)threadIdx.x;
   int ix[PER];
-  load_direct<PER>(idx + r * A, w, hi, ix);
-  serve_direct<PER>(trow, idx + r * A, out + r * A, w, hi, K, ix);
+  load_direct<PER>(irow, w, hi, ix);
+  serve_direct<PER>(trow, irow, out + r * A, w, hi, K, ix);
 }
 
 // Staging launches: block x of row y serves span x of it (spans of over
@@ -265,13 +271,15 @@ __global__ void __launch_bounds__(kGatherThreads)
 row_gather_staged_kernel(const int32_t* __restrict__ table,
                          const int32_t* __restrict__ idx,
                          const int32_t* __restrict__ rows,
-                         int32_t* __restrict__ out, int G, int K, int A) {
+                         const int32_t* __restrict__ irows,
+                         int32_t* __restrict__ out, int G, int Gi, int K,
+                         int A) {
   extern __shared__ __align__(16) int32_t s_buf[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(s_buf);
   int* staged = s_buf + 2;
   const int64_t r = blockIdx.y;
   const int32_t* trow = table + (int64_t)source_row(rows, (int)r, G) * K;
-  const int32_t* irow = idx + r * A;
+  const int32_t* irow = idx + (int64_t)source_row(irows, (int)r, Gi) * A;
   int32_t* orow = out + r * A;
   constexpr int W = VEC ? 4 : 1;
   int lo, hi;
@@ -298,28 +306,92 @@ row_gather_staged_kernel(const int32_t* __restrict__ table,
   }
 }
 
-// --- K2, K4, K5 ---
+// --- K2, K6, K7: the unique-target scatter, by output ownership ---
+//
+// Block x of row y owns words [x * T, x * T + T) of all V output planes of
+// row y: it zeroes the tile in shared memory, reads the row's targets
+// (int4 where P % 4 == 0, coalesced; from L2 after the row's first tile),
+// writes the payloads whose targets fall inside the tile, and stores the
+// tile once (int4 where K % 4 == 0).  Every output word is written once,
+// by one block, in whole sectors, and the zero pass of its own is gone.
+// A target outside [0, K) falls in no tile and is dropped.  Unique targets
+// mean no two threads write one shared word: no atomics.
 
-__global__ void zero_kernel(int32_t* __restrict__ out, int64_t n) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    out[i] = 0;
-}
-
-__global__ void row_scatter_multi_kernel(const int32_t* __restrict__ idx,
-                                         const int32_t* __restrict__ vals,
-                                         int32_t* __restrict__ out,
-                                         int V, int P, int K) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
+template <int V, bool VEC, int NT>
+__global__ void __launch_bounds__(NT)
+row_scatter_kernel(const int32_t* __restrict__ idx,
+                   const int32_t* __restrict__ vals,
+                   int32_t* __restrict__ out, int P, int K, int T,
+                   bool out_vec) {
+  extern __shared__ __align__(16) int32_t s_tile[];  // V planes of T words
   const int64_t r = blockIdx.y;
-  const int t = idx[r * P + p];
-  if (t < 0 || t >= K) return;  // dropped target
-  // targets are unique per row: no two threads write one word, so plain
-  // stores suffice (no atomics)
-  for (int v = 0; v < V; ++v)
-    out[(r * V + v) * K + t] = vals[(r * V + v) * P + p];
+  const int t0 = (int)blockIdx.x * T;
+  const unsigned n = (unsigned)min(T, K - t0);
+  const int nt = (int)blockDim.x;
+  for (int i = threadIdx.x; i < V * T / 4; i += nt)
+    reinterpret_cast<int4*>(s_tile)[i] = make_int4(0, 0, 0, 0);
+  __syncthreads();
+  const int32_t* irow = idx + r * P;
+  const int32_t* vrow = vals + r * V * P;
+  constexpr int W = VEC ? 4 : 1;
+  const int units = P / W;
+  for (int u = threadIdx.x; u < units; u += kUnroll * nt) {
+    int ix[kUnroll][4];
+    load_units<VEC>(irow, u, units, ix);
+    unsigned rel[kUnroll][4];
+    bool hit[kUnroll];
+    int pv[kUnroll][V][4];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int v = u + k * nt;
+      hit[k] = false;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        // unsigned: one compare rejects both sides of the tile
+        rel[k][w] = (unsigned)ix[k][w] - (unsigned)t0;
+        hit[k] |= v < units && rel[k][w] < n;
+      }
+      if (hit[k]) {
+#pragma unroll
+        for (int p = 0; p < V; ++p) {
+          if constexpr (VEC) {
+            const int4 q = __ldg(
+                reinterpret_cast<const int4*>(vrow + (int64_t)p * P) + v);
+            pv[k][p][0] = q.x;
+            pv[k][p][1] = q.y;
+            pv[k][p][2] = q.z;
+            pv[k][p][3] = q.w;
+          } else {
+            pv[k][p][0] = __ldg(vrow + (int64_t)p * P + v);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      if (!hit[k]) continue;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (rel[k][w] < n) {
+#pragma unroll
+          for (int p = 0; p < V; ++p) s_tile[p * T + rel[k][w]] = pv[k][p][w];
+        }
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < V; ++p) {
+    int32_t* orow = out + (r * V + p) * K + t0;
+    const int32_t* src = s_tile + p * T;
+    if (out_vec) {
+      for (int i = threadIdx.x; i < (int)n / 4; i += nt)
+        reinterpret_cast<int4*>(orow)[i] =
+            reinterpret_cast<const int4*>(src)[i];
+    } else {
+      for (int i = threadIdx.x; i < (int)n; i += nt) orow[i] = src[i];
+    }
+  }
 }
 
 constexpr int kThreads = 256;
@@ -380,26 +452,6 @@ __global__ void windowed_gather_kernel(
   }
 }
 
-// K5.  One thread per (row, position); the (R, P) copy of skid[a_idx] is
-// never written.  Bound by bytes: skid and out stream coalesced, the jw
-// reads are random inside one row.  The TPU kernel caches one-hot factors
-// per genome across sequential grid steps; blocks run concurrently here,
-// so nothing is cached across blocks.
-__global__ void genome_map_gather_kernel(const int32_t* __restrict__ skid,
-                                         const int32_t* __restrict__ a_idx,
-                                         const int32_t* __restrict__ jw,
-                                         int32_t* __restrict__ out,
-                                         int G, int P, int K) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  const int64_t r = blockIdx.y;
-  int g = a_idx[r];
-  g = g < 0 ? 0 : (g >= G ? G - 1 : g);
-  int j = skid[(int64_t)g * P + p];
-  j = j < 0 ? 0 : (j >= K ? K - 1 : j);  // never read outside the row
-  out[r * P + p] = __ldg(jw + r * K + j);
-}
-
 // K1's launches.  Staging (blocks of kGatherThreads) is offered where the
 // row fits in a block's shared memory and where each block of one wave
 // (the blocks the SMs hold at a time, shared among the R rows) then serves
@@ -430,6 +482,7 @@ const Card& card() {
 
 int smem_bytes(int words) { return (16 + 4 * (words + 3) + 15) & ~15; }
 
+
 template <bool VEC>
 int gather(const int32_t* table, const int32_t* idx, const int32_t* rows,
            int32_t* out, int G, int R, int K, int A, cudaStream_t st) {
@@ -448,23 +501,83 @@ int gather(const int32_t* table, const int32_t* idx, const int32_t* rows,
           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
       if (set != cudaSuccess) return (int)set;
       row_gather_staged_kernel<VEC><<<dim3(nb, R), kGatherThreads, b, st>>>(
-          table, idx, rows, out, G, K, A);
+          table, idx, rows, nullptr, out, G, R, K, A);
       return (int)cudaGetLastError();
     }
   }
   // direct: one index a thread where that fills the card at most once,
   // else kDirectPer, one block a kDirectThreads * that many indices
   if ((int64_t)A * R <= (int64_t)c.sms * c.threads_sm) {
-    row_gather_kernel<1>
+    row_gather_kernel<1, kDirectThreads>
         <<<dim3((A + kDirectThreads - 1) / kDirectThreads, R),
-            kDirectThreads, 0, st>>>(table, idx, rows, out, G, K, A);
+            kDirectThreads, 0, st>>>(table, idx, rows, nullptr, out, G, R,
+                                     K, A);
   } else {
     constexpr int per_block = kDirectThreads * kDirectPer;
-    row_gather_kernel<kDirectPer>
+    row_gather_kernel<kDirectPer, kDirectThreads>
         <<<dim3((A + per_block - 1) / per_block, R), kDirectThreads, 0,
-            st>>>(table, idx, rows, out, G, K, A);
+            st>>>(table, idx, rows, nullptr, out, G, R, K, A);
   }
   return (int)cudaGetLastError();
+}
+
+// K5's launch: row-affine, sms / R blocks a row (at least one) of
+// kRowThreads threads, so that each SM serves one jw row at a time and
+// its L1 (the kernel asks for the largest L1 share of the SM's 256 KB)
+// holds as much of that row as fits.  skid's positions map to kmer ids in
+// no order, so the jw reads are random: through L2 each pulls a 32-byte
+// sector, and the rate of those requests, not DRAM, bounds the gather.
+// A row of up to ~200 KB (the contigs and joins batches') is served from
+// L1 after its first touch, as if staged, without the copy; a wider row
+// (slow, -c 20) hits L1 in proportion.  skid rows are read once a row;
+// rows that share a genome find its skid row in L2.
+int genome_map(const int32_t* skid, const int32_t* a_idx, const int32_t* jw,
+               int32_t* out, int G, int R, int P, int K, cudaStream_t st) {
+  const Card& c = card();
+  static const cudaError_t set = cudaFuncSetAttribute(
+      row_gather_kernel<kDirectPer, kRowThreads>,
+      cudaFuncAttributePreferredSharedMemoryCarveout, 0);
+  if (set != cudaSuccess) return (int)set;
+  row_gather_kernel<kDirectPer, kRowThreads>
+      <<<dim3(max(1, c.sms / R), R), kRowThreads, 0, st>>>(
+          jw, skid, nullptr, a_idx, out, R, G, K, P);
+  return (int)cudaGetLastError();
+}
+
+// The scatter's tiles: at least as many a row as the V planes of a row
+// need to fit a block's shared memory, else as many as give each SM one
+// block of the R rows' (at most one block an SM: more tiles re-read each
+// row's targets more often and measured slower); T a multiple of 4 words.
+// A block has 1024 threads at V = 1 and 512 at V = 2 and 3, whose int4
+// payload registers would spill at 1024.
+constexpr int scatter_threads(int V) { return V == 1 ? 1024 : 512; }
+
+template <int V, bool VEC>
+int scatter(const int32_t* idx, const int32_t* vals, int32_t* out, int R,
+            int P, int K, cudaStream_t st) {
+  constexpr int kMaxT = (kSmemBytes / 4 / V) & ~3;
+  constexpr int NT = scatter_threads(V);
+  int nt = max((K + kMaxT - 1) / kMaxT, max(1, card().sms / R));
+  const int T = min((((K + nt - 1) / nt) + 3) & ~3, kMaxT);
+  nt = (K + T - 1) / T;
+  static const cudaError_t set = cudaFuncSetAttribute(
+      row_scatter_kernel<V, VEC, NT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (set != cudaSuccess) return (int)set;
+  const bool out_vec = K % 4 == 0 && ((uintptr_t)out & 15) == 0;
+  row_scatter_kernel<V, VEC, NT><<<dim3(nt, R), NT, 4 * V * T, st>>>(
+      idx, vals, out, P, K, T, out_vec);
+  return (int)cudaGetLastError();
+}
+
+template <int V>
+int scatter_v(const int32_t* idx, const int32_t* vals, int32_t* out, int R,
+              int P, int K, cudaStream_t st) {
+  // int4 index and payload loads need every row 16-byte aligned
+  const bool vec = P % 4 == 0 && ((uintptr_t)idx & 15) == 0
+      && ((uintptr_t)vals & 15) == 0;
+  return vec ? scatter<V, true>(idx, vals, out, R, P, K, st)
+             : scatter<V, false>(idx, vals, out, R, P, K, st);
 }
 
 }  // namespace
@@ -487,22 +600,22 @@ extern "C" int skt_row_gather(const void* table, const void* idx,
              : gather<false>(t, i, m, o, G, R, K, A, st);
 }
 
+// V in [1, 3]; out (R, V, K) is written whole, zeros included.
 extern "C" int skt_row_scatter_multi(const void* idx, const void* vals,
                                      void* out, int R, int V, int P, int K,
                                      void* stream) {
-  const int64_t n = (int64_t)R * V * K;
-  if (n > 0) {
-    int64_t blocks = (n + kThreads - 1) / kThreads;
-    if (blocks > 4096) blocks = 4096;
-    zero_kernel<<<(int)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (int32_t*)out, n);
+  if (R <= 0 || K <= 0) return (int)cudaGetLastError();
+  if (P < 0) return (int)cudaErrorInvalidValue;
+  const auto i = (const int32_t*)idx;
+  const auto v = (const int32_t*)vals;
+  const auto o = (int32_t*)out;
+  const auto st = (cudaStream_t)stream;
+  switch (V) {
+    case 1: return scatter_v<1>(i, v, o, R, P, K, st);
+    case 2: return scatter_v<2>(i, v, o, R, P, K, st);
+    case 3: return scatter_v<3>(i, v, o, R, P, K, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  if (R > 0 && P > 0) {
-    dim3 grid((P + kThreads - 1) / kThreads, R);
-    row_scatter_multi_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)idx, (const int32_t*)vals, (int32_t*)out, V, P, K);
-  }
-  return (int)cudaGetLastError();
 }
 
 extern "C" int skt_windowed_gather(const void* table, const void* idx,
@@ -524,14 +637,13 @@ extern "C" int skt_windowed_gather(const void* table, const void* idx,
   return (int)cudaGetLastError();
 }
 
+// skid int32 (G, P), a_idx (R,), jw (R, K), out (R, P).
 extern "C" int skt_genome_map_gather(const void* skid, const void* a_idx,
                                      const void* jw, void* out, int G, int R,
                                      int P, int K, void* stream) {
-  if (R > 0 && P > 0) {
-    dim3 grid((P + kThreads - 1) / kThreads, R);
-    genome_map_gather_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)skid, (const int32_t*)a_idx, (const int32_t*)jw,
-        (int32_t*)out, G, P, K);
-  }
-  return (int)cudaGetLastError();
+  if (R <= 0 || P <= 0) return (int)cudaGetLastError();
+  if (K < 1 || G < 1) return (int)cudaErrorInvalidValue;
+  return genome_map((const int32_t*)skid, (const int32_t*)a_idx,
+                    (const int32_t*)jw, (int32_t*)out, G, R, P, K,
+                    (cudaStream_t)stream);
 }

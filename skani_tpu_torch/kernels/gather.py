@@ -14,15 +14,15 @@ Each kernel has its plain PyTorch version beside it:
   the row's overflow flag.  Replaces gather_pallas.py
   windowed_sorted_gather.
 * `genome_map_gather(skid, a_idx, jw)` -> out[r, p] = jw[r, skid[a_idx[r],
-  p]], without the (R, P) copy of skid[a_idx].  Replaces gather_pallas.py
-  genome_map_gather.
+  p]], without the (R, P) copy of skid[a_idx]: row_gather's kernel with a
+  map on the index rows.  Replaces gather_pallas.py genome_map_gather.
 * `row_scatter_multi(idx, vals, K)` -> out[r, v, idx[r, p]] = vals[r, v, p],
   zeros elsewhere; targets are unique per row and targets outside [0, K)
   are dropped.  Replaces gather_pallas.py mxu_row_scatter_multi_wide and
   mxu_row_scatter_multi (one contract).
 * `row_scatter(idx, vals, K)` -> the single-payload scatter, out[r, idx[r,
   p]] = vals[r, p].  Replaces gather_pallas.py mxu_row_scatter; it launches
-  the multi-payload kernel with V = 1.
+  the multi-payload kernel with V = 1 (V is 1, 2 or 3 on the card).
 
 The TPU kernels build one-hot byte-plane matrix products because that
 chip has no fast gather; their shape predicates, plane choices and VMEM
@@ -32,7 +32,12 @@ streams, row-local table reads (for the windowed gather's ascending
 indices, coalesced).  row_gather reads its table row through L2, or,
 where the row fits in a block's shared memory (ROW_SMEM_WORDS) and the
 shape makes a copy pay, from a copy that each block stages there unless
-its first 32 indices are nondecreasing.
+its first 32 indices are nondecreasing.  genome_map_gather's launch gives
+each SM one jw row (sms / R blocks of 1024 threads a row), so that the
+SM's L1 holds as much of that row as fits.  The scatters own their output:
+a block zeroes a tile of one row's V planes in shared memory, writes the
+payloads whose targets fall in it, and stores it once; the tiles give
+each SM one block (more where a row's V planes need more tiles to fit).
 
 Dispatch rule: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises.  There is no fallback from one to the other.
@@ -182,17 +187,20 @@ def windowed_sorted_gather(table: torch.Tensor, idx: torch.Tensor,
 
 def genome_map_gather_plain(skid: torch.Tensor, a_idx: torch.Tensor,
                             jw: torch.Tensor) -> torch.Tensor:
-    """Plain version: materialise skid[a_idx], then gather along the
-    row."""
-    K = jw.shape[1]
-    return torch.gather(jw, 1, skid[a_idx.long()].clamp(0, K - 1).long())
+    """Plain version: materialise skid[a_idx] (genome ids clamped into
+    [0, G)), then gather along the row, skid values clamped into [0, K)
+    like the kernel's."""
+    G, K = skid.shape[0], jw.shape[1]
+    rows = a_idx.clamp(0, G - 1).long()
+    return torch.gather(jw, 1, skid[rows].clamp(0, K - 1).long())
 
 
 def genome_map_gather(skid: torch.Tensor, a_idx: torch.Tensor,
                       jw: torch.Tensor) -> torch.Tensor:
     """out[r, p] = jw[r, skid[a_idx[r], p]] for int32 skid (G, P), a_idx
-    (R,) and jw (R, K).  Padding positions (skid == 0) read jw[:, 0]; the
-    caller masks them."""
+    (R,) and jw (R, K), a_idx clamped into [0, G) and skid values into
+    [0, K).  a_idx may come in any order.  Padding positions (skid == 0)
+    read jw[:, 0]; the caller masks them."""
     if skid.dim() != 2 or jw.dim() != 2 or a_idx.dim() != 1 \
             or a_idx.shape[0] != jw.shape[0]:
         raise ValueError(f"genome_map_gather: bad shapes "
@@ -236,8 +244,8 @@ def _launch_scatter(name, idx, vals, K):
     (R, P) and vals (R, V, P) on one CUDA device; counts under `name`."""
     _check_i32(name, idx, vals)
     R, V, P = vals.shape
-    if R > 65535:
-        raise ValueError(f"{name}: unsupported R={R}")
+    if R > 65535 or not 1 <= V <= 3:
+        raise ValueError(f"{name}: unsupported R={R}, V={V}")
     out = torch.empty((R, V, K), dtype=torch.int32, device=idx.device)
     lib = _build.lib()
     _build.check(lib.skt_row_scatter_multi(
@@ -250,9 +258,10 @@ def _launch_scatter(name, idx, vals, K):
 def row_scatter_multi(idx: torch.Tensor, vals: torch.Tensor,
                       K: int) -> torch.Tensor:
     """out (R, V, K) int32 with out[r, v, idx[r, p]] = vals[r, v, p] and
-    zeros elsewhere, for int32 idx (R, P) and vals (R, V, P).  Payloads are
-    bit patterns (a uint32 word bitcast to int32 keeps its top bit).
-    Targets must be unique per row; targets outside [0, K) are dropped."""
+    zeros elsewhere, for int32 idx (R, P) and vals (R, V, P), V in [1, 3]
+    on the card.  Payloads are bit patterns (a uint32 word bitcast to
+    int32 keeps its top bit).  Targets must be unique per row, in any
+    order; targets outside [0, K) are dropped."""
     if idx.dim() != 2 or vals.dim() != 3 \
             or vals.shape[0] != idx.shape[0] \
             or vals.shape[2] != idx.shape[1]:

@@ -20,6 +20,7 @@ from skani_tpu_torch.kernels.device_db import DeviceDb
 from skani_tpu_torch.kernels.device_pipeline import (DevicePairEngine,
                                                      phase_a)
 from skani_tpu_torch.params import map_params_from_sketch
+from torch_gather_cases import gmap_inputs, scatter_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -187,6 +188,85 @@ def test_row_scatter_kernel_matches_plain(dev):
     assert gather.LAUNCHES["row_scatter"] == n0["row_scatter"] + 1
     assert gather.LAUNCHES["row_scatter_multi"] == n0["row_scatter_multi"]
     assert torch.equal(got, gather.row_scatter_plain(idx, vals, K))
+
+
+# (kind, R, V, P, K): the cases of the schedule test
+# (tests/test_torch_gather_schedule.py), the main path's fills (default
+# batch, V 2; contigs batch, V 1), V 3, more rows than SMs, V planes wider
+# than one block's shared memory, a row wider than the card has tiles
+_SCATTER = [
+    ("ascending", 4, 2, 4096, 4480), ("ascending", 3, 1, 4096, 5003),
+    ("random", 8, 1, 2048, 3000), ("random", 5, 2, 4096, 4096),
+    ("dropped", 8, 2, 2048, 256), ("dropped", 6, 3, 2048, 384),
+    ("dropped", 5, 2, 2050, 1001), ("random", 3, 3, 999, 1001),
+    ("dropped", 40, 1, 2048, 640), ("ascending", 3, 3, 4096, 3000),
+    ("ascending", 33, 2, 40960, 47104), ("random", 33, 2, 40960, 47104),
+    ("ascending", 32, 1, 45056, 49152), ("dropped", 33, 1, 40960, 47104),
+    ("random", 33, 3, 40960, 47104), ("dropped", 200, 1, 513, 7001),
+    ("random", 2, 3, 30000, 60000), ("dropped", 1, 1, 77, 200000)]
+
+
+@pytest.mark.parametrize("kind,R,V,P,K", _SCATTER)
+def test_row_scatter_kernel_cases(dev, kind, R, V, P, K):
+    """Kernel against plain version, one launch a call, every case of the
+    scatter schedule and the main path's shapes (V = 1 through both
+    wrappers)."""
+    rng = np.random.default_rng(R * 1000 + V * 100 + P + K)
+    idx_np, vals_np = scatter_inputs(rng, kind, R, V, P, K)
+    idx, vals = _dev([idx_np, vals_np], dev)
+    n0 = dict(gather.LAUNCHES)
+    got = gather.row_scatter_multi(idx, vals, K)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES["row_scatter_multi"] == n0["row_scatter_multi"] + 1
+    want = gather.row_scatter_multi_plain(idx, vals, K)
+    assert torch.equal(got, want)
+    if V == 1:
+        one = gather.row_scatter(idx, vals[:, 0].contiguous(), K)
+        torch.cuda.synchronize()
+        assert gather.LAUNCHES["row_scatter"] == n0["row_scatter"] + 1
+        assert torch.equal(one, want[:, 0])
+
+
+def test_row_scatter_kernel_unaligned_inputs(dev):
+    """Targets and payloads that start off a 16-byte boundary take the
+    one-word loads; K % 4 != 0 the one-word stores."""
+    rng = np.random.default_rng(31)
+    R, V, P, K = 5, 2, 4096, 4999
+    idx_np, vals_np = scatter_inputs(rng, "dropped", R, V, P, K)
+    ib = torch.zeros(R * P + 1, dtype=torch.int32, device=dev)
+    vb = torch.zeros(R * V * P + 1, dtype=torch.int32, device=dev)
+    idx = ib[1:].view(R, P)
+    vals = vb[1:].view(R, V, P)
+    idx.copy_(torch.from_numpy(idx_np))
+    vals.copy_(torch.from_numpy(vals_np))
+    assert idx.data_ptr() % 16 and vals.data_ptr() % 16
+    got = gather.row_scatter_multi(idx, vals, K)
+    assert torch.equal(got, gather.row_scatter_multi_plain(idx, vals, K))
+
+
+# (kind, G, R, P, K): the cases of the schedule test, then rows that fit a
+# block's shared memory (ROW_SMEM_WORDS: the contigs and joins batches'
+# kmer axes) and wider ones (the slow and -c 20 batches'), more rows than
+# SMs
+_GMAP = [
+    ("unsorted", 5, 9, 4096, 256), ("all_equal", 4, 6, 4096, 384),
+    ("out_of_range", 5, 7, 4096, 300), ("unsorted", 3, 12, 4099, 1001),
+    ("unsorted", 16, 32, 45056, 38912),
+    ("all_equal", 16, 33, 40960, gather.ROW_SMEM_WORDS),
+    ("unsorted", 16, 32, 167936, 157696),
+    ("out_of_range", 16, 29, 253952, 235520),
+    ("unsorted", 7, 200, 1001, 5000)]
+
+
+@pytest.mark.parametrize("kind,G,R,P,K", _GMAP)
+def test_genome_map_gather_kernel_cases(dev, kind, G, R, P, K):
+    rng = np.random.default_rng(G * 1000 + R + P + K)
+    skid, a_idx, jw = _dev(gmap_inputs(rng, kind, G, R, P, K), dev)
+    n0 = gather.LAUNCHES["genome_map_gather"]
+    got = gather.genome_map_gather(skid, a_idx, jw)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES["genome_map_gather"] == n0 + 1
+    assert torch.equal(got, gather.genome_map_gather_plain(skid, a_idx, jw))
 
 
 @pytest.mark.parametrize("band,l_cap,tag", [
