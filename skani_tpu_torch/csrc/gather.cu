@@ -170,32 +170,24 @@ __device__ __forceinline__ void load_units(const int32_t* __restrict__ irow,
   }
 }
 
-// VARIANT: a row wider than a block's shared memory stages its first ns
-// words; word j is read from there below ns, through L2 past it
-__device__ __forceinline__ int staged_word(const int32_t* s,
-                                           const int32_t* __restrict__ trow,
-                                           int j, int ns) {
-  return j < ns ? s[j] : __ldg(trow + j);
-}
-
 template <bool VEC>
-__device__ __forceinline__ void store_units(
-    int32_t* __restrict__ orow, int u, int hi, int K, int ns,
-    const int (&ix)[kUnroll][4], const int32_t* s,
-    const int32_t* __restrict__ trow) {
+__device__ __forceinline__ void store_units(int32_t* __restrict__ orow,
+                                            int u, int hi, int K,
+                                            const int (&ix)[kUnroll][4],
+                                            const int32_t* s) {
 #pragma unroll
   for (int k = 0; k < kUnroll; ++k) {
     const int v = u + k * (int)blockDim.x;
     if (v < hi) {
       if constexpr (VEC) {
         int4 o;
-        o.x = staged_word(s, trow, clamp_row(ix[k][0], K), ns);
-        o.y = staged_word(s, trow, clamp_row(ix[k][1], K), ns);
-        o.z = staged_word(s, trow, clamp_row(ix[k][2], K), ns);
-        o.w = staged_word(s, trow, clamp_row(ix[k][3], K), ns);
+        o.x = s[clamp_row(ix[k][0], K)];
+        o.y = s[clamp_row(ix[k][1], K)];
+        o.z = s[clamp_row(ix[k][2], K)];
+        o.w = s[clamp_row(ix[k][3], K)];
         reinterpret_cast<int4*>(orow)[v] = o;
       } else {
-        orow[v] = staged_word(s, trow, clamp_row(ix[k][0], K), ns);
+        orow[v] = s[clamp_row(ix[k][0], K)];
       }
     }
   }
@@ -207,8 +199,7 @@ __device__ __forceinline__ void store_units(
 template <bool VEC>
 __device__ __forceinline__ void serve_staged(
     const int32_t* __restrict__ irow, int32_t* __restrict__ orow, int lo,
-    int hi, int K, int ns, uint64_t* bar, const int32_t* s,
-    const int32_t* __restrict__ trow) {
+    int hi, int K, uint64_t* bar, const int32_t* s) {
   int ix[kUnroll][4];
   const int step = kUnroll * (int)blockDim.x;
   int u = lo + (int)threadIdx.x;
@@ -216,7 +207,7 @@ __device__ __forceinline__ void serve_staged(
   __syncthreads();  // the plain-loaded ends of the row
   mbar_wait(bar, 0);
   while (u < hi) {
-    store_units<VEC>(orow, u, hi, K, ns, ix, s, trow);
+    store_units<VEC>(orow, u, hi, K, ix, s);
     u += step;
     load_units<VEC>(irow, u, hi, ix);
   }
@@ -308,10 +299,8 @@ row_gather_staged_kernel(const int32_t* __restrict__ table,
   __syncthreads();
   if (*staged) {
     int32_t* srow = s_buf + 4;
-    const int ns = min(K, kRowSmemWords);
-    stage_row(srow, trow, ns, bar);
-    serve_staged<VEC>(irow, orow, lo, hi, K, ns, bar,
-                      srow + stage_pad(trow), trow);
+    stage_row(srow, trow, K, bar);
+    serve_staged<VEC>(irow, orow, lo, hi, K, bar, srow + stage_pad(trow));
   } else {
     serve_direct<kDirectPer>(trow, irow, orow, w, hi * W, K, ix);
   }
@@ -494,31 +483,25 @@ const Card& card() {
 int smem_bytes(int words) { return (16 + 4 * (words + 3) + 15) & ~15; }
 
 
-// VARIANT selectors (measuring only): [0] K5's launch, [1] the scatter's
-// threads, [2] the scatter's tiles a row
-int g_variant[3] = {0, 0, 0};
-
 template <bool VEC>
 int gather(const int32_t* table, const int32_t* idx, const int32_t* rows,
-           int32_t* out, int G, int R, int K, int A, cudaStream_t st,
-           const int32_t* irows = nullptr, int Gi = 0, bool force = false) {
+           int32_t* out, int G, int R, int K, int A, cudaStream_t st) {
   const Card& c = card();
-  if (Gi == 0) Gi = R;
-  if (K <= kRowSmemWords || force) {
-    const int b = smem_bytes(min(K, kRowSmemWords));
+  if (K <= kRowSmemWords) {
+    const int b = smem_bytes(K);
     const int resident = max(1, min(c.threads_sm / kGatherThreads,
                                     c.smem_sm / (b + c.reserved)));
     const int units = VEC ? A / 4 : A;
     const int nb = max(1, min(c.sms * resident / R, units / kGatherThreads));
     const int span = A / nb;
-    if (force || (span > K / 8 && span >= 4 * kGatherThreads)) {
+    if (span > K / 8 && span >= 4 * kGatherThreads) {
       // once, at the first launch
       static const cudaError_t set = cudaFuncSetAttribute(
           row_gather_staged_kernel<VEC>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
       if (set != cudaSuccess) return (int)set;
       row_gather_staged_kernel<VEC><<<dim3(nb, R), kGatherThreads, b, st>>>(
-          table, idx, rows, irows, out, G, Gi, K, A);
+          table, idx, rows, nullptr, out, G, R, K, A);
       return (int)cudaGetLastError();
     }
   }
@@ -527,46 +510,15 @@ int gather(const int32_t* table, const int32_t* idx, const int32_t* rows,
   if ((int64_t)A * R <= (int64_t)c.sms * c.threads_sm) {
     row_gather_kernel<1, kDirectThreads>
         <<<dim3((A + kDirectThreads - 1) / kDirectThreads, R),
-            kDirectThreads, 0, st>>>(table, idx, rows, irows, out, G, Gi,
+            kDirectThreads, 0, st>>>(table, idx, rows, nullptr, out, G, R,
                                      K, A);
   } else {
     constexpr int per_block = kDirectThreads * kDirectPer;
     row_gather_kernel<kDirectPer, kDirectThreads>
         <<<dim3((A + per_block - 1) / per_block, R), kDirectThreads, 0,
-            st>>>(table, idx, rows, irows, out, G, Gi, K, A);
+            st>>>(table, idx, rows, nullptr, out, G, R, K, A);
   }
   return (int)cudaGetLastError();
-}
-
-// VARIANT of K5: block (x, y) serves kDirectThreads positions of rows
-// [y * RG, y * RG + RG); the skid word is loaded once a run of equal
-// genome ids, RG jw loads in flight a thread
-template <int RG>
-__global__ void __launch_bounds__(kDirectThreads)
-row_group_kernel(const int32_t* __restrict__ table,
-                 const int32_t* __restrict__ idx,
-                 const int32_t* __restrict__ irows,
-                 int32_t* __restrict__ out, int R, int Gi, int K, int A) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= A) return;
-  const int r0 = blockIdx.y * RG;
-  int v[RG];
-  int prev = -1, j = 0;
-#pragma unroll
-  for (int k = 0; k < RG; ++k) {
-    const int r = r0 + k;
-    if (r < R) {
-      const int g = source_row(irows, r, Gi);
-      if (g != prev) {
-        j = clamp_row(__ldg(idx + (int64_t)g * A + w), K);
-        prev = g;
-      }
-      v[k] = __ldg(table + (int64_t)r * K + j);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < RG; ++k)
-    if (r0 + k < R) out[(int64_t)(r0 + k) * A + w] = v[k];
 }
 
 // K5's launch: row-affine, sms / R blocks a row (at least one) of
@@ -582,33 +534,6 @@ row_group_kernel(const int32_t* __restrict__ table,
 int genome_map(const int32_t* skid, const int32_t* a_idx, const int32_t* jw,
                int32_t* out, int G, int R, int P, int K, cudaStream_t st) {
   const Card& c = card();
-  const bool vec = P % 4 == 0 && ((uintptr_t)skid & 15) == 0
-      && ((uintptr_t)out & 15) == 0;
-  switch (g_variant[0]) {
-    case 1:   // K1's launch rule: staged where the row fits, else direct
-    case 5:   // staged at any width (a row's first words, the rest via L2)
-      return vec ? gather<true>(jw, skid, nullptr, out, R, R, K, P, st,
-                                a_idx, G, g_variant[0] == 5)
-                 : gather<false>(jw, skid, nullptr, out, R, R, K, P, st,
-                                 a_idx, G, g_variant[0] == 5);
-    case 2:   // direct, 4 a thread, blocks of 256
-      row_gather_kernel<kDirectPer, kDirectThreads>
-          <<<dim3((P + 1023) / 1024, R), kDirectThreads, 0, st>>>(
-              jw, skid, nullptr, a_idx, out, R, G, K, P);
-      return (int)cudaGetLastError();
-    case 3:   // direct, 1 a thread, blocks of 256 (the parent's shape)
-      row_gather_kernel<1, kDirectThreads>
-          <<<dim3((P + 255) / 256, R), kDirectThreads, 0, st>>>(
-              jw, skid, nullptr, a_idx, out, R, G, K, P);
-      return (int)cudaGetLastError();
-    case 4:   // row groups of 8
-      row_group_kernel<8><<<dim3((P + 255) / 256, (R + 7) / 8),
-                            kDirectThreads, 0, st>>>(jw, skid, a_idx, out,
-                                                     R, G, K, P);
-      return (int)cudaGetLastError();
-    default:
-      break;
-  }
   static const cudaError_t set = cudaFuncSetAttribute(
       row_gather_kernel<kDirectPer, kRowThreads>,
       cudaFuncAttributePreferredSharedMemoryCarveout, 0);
@@ -633,29 +558,13 @@ int scatter(const int32_t* idx, const int32_t* vals, int32_t* out, int R,
   constexpr int kMaxT = (kSmemBytes / 4 / V) & ~3;
   constexpr int NT = scatter_threads(V);
   int nt = max((K + kMaxT - 1) / kMaxT, max(1, card().sms / R));
-  if (g_variant[2] > 0) nt = max(g_variant[2], (K + kMaxT - 1) / kMaxT);
   const int T = min((((K + nt - 1) / nt) + 3) & ~3, kMaxT);
   nt = (K + T - 1) / T;
   static const cudaError_t set = cudaFuncSetAttribute(
       row_scatter_kernel<V, VEC, NT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (set != cudaSuccess) return (int)set;
-  static const cudaError_t s512 = cudaFuncSetAttribute(
-      row_scatter_kernel<V, VEC, 512>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (s512 != cudaSuccess) return (int)s512;
-  static const cudaError_t s1024 = cudaFuncSetAttribute(
-      row_scatter_kernel<V, VEC, 1024>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (s1024 != cudaSuccess) return (int)s1024;
   const bool out_vec = K % 4 == 0 && ((uintptr_t)out & 15) == 0;
-  if (g_variant[1] == 1)
-    row_scatter_kernel<V, VEC, 512><<<dim3(nt, R), 512, 4 * V * T, st>>>(
-        idx, vals, out, P, K, T, out_vec);
-  else if (g_variant[1] == 2)
-    row_scatter_kernel<V, VEC, 1024><<<dim3(nt, R), 1024, 4 * V * T, st>>>(
-        idx, vals, out, P, K, T, out_vec);
-  else
   row_scatter_kernel<V, VEC, NT><<<dim3(nt, R), NT, 4 * V * T, st>>>(
       idx, vals, out, P, K, T, out_vec);
   return (int)cudaGetLastError();
@@ -672,10 +581,6 @@ int scatter_v(const int32_t* idx, const int32_t* vals, int32_t* out, int R,
 }
 
 }  // namespace
-
-extern "C" void skt_variant_set(int which, int value) {
-  g_variant[which] = value;
-}
 
 // rows: int32 (R,) or null for the identity (then G == R).
 extern "C" int skt_row_gather(const void* table, const void* idx,
