@@ -45,8 +45,9 @@
 // measured slower wherever the inputs were still in L2.
 // `rows` (int32, clamped into [0, G)) maps output row r to table row
 // rows[r], so callers pass a device table and the batch's genome ids
-// instead of a per-batch copy of the rows; `irows` (clamped into [0, Gi))
-// maps it to index row irows[r] the same way (K5's a_idx).
+// instead of a per-batch copy of the rows; in the direct kernel `irows`
+// (clamped into [0, Gi)) maps it to index row irows[r] the same way (K5's
+// a_idx).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -271,15 +272,13 @@ __global__ void __launch_bounds__(kGatherThreads)
 row_gather_staged_kernel(const int32_t* __restrict__ table,
                          const int32_t* __restrict__ idx,
                          const int32_t* __restrict__ rows,
-                         const int32_t* __restrict__ irows,
-                         int32_t* __restrict__ out, int G, int Gi, int K,
-                         int A) {
+                         int32_t* __restrict__ out, int G, int K, int A) {
   extern __shared__ __align__(16) int32_t s_buf[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(s_buf);
   int* staged = s_buf + 2;
   const int64_t r = blockIdx.y;
   const int32_t* trow = table + (int64_t)source_row(rows, (int)r, G) * K;
-  const int32_t* irow = idx + (int64_t)source_row(irows, (int)r, Gi) * A;
+  const int32_t* irow = idx + r * A;
   int32_t* orow = out + r * A;
   constexpr int W = VEC ? 4 : 1;
   int lo, hi;
@@ -482,7 +481,6 @@ const Card& card() {
 
 int smem_bytes(int words) { return (16 + 4 * (words + 3) + 15) & ~15; }
 
-
 template <bool VEC>
 int gather(const int32_t* table, const int32_t* idx, const int32_t* rows,
            int32_t* out, int G, int R, int K, int A, cudaStream_t st) {
@@ -501,7 +499,7 @@ int gather(const int32_t* table, const int32_t* idx, const int32_t* rows,
           cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
       if (set != cudaSuccess) return (int)set;
       row_gather_staged_kernel<VEC><<<dim3(nb, R), kGatherThreads, b, st>>>(
-          table, idx, rows, nullptr, out, G, R, K, A);
+          table, idx, rows, out, G, K, A);
       return (int)cudaGetLastError();
     }
   }

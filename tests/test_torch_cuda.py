@@ -244,6 +244,13 @@ def test_row_scatter_kernel_unaligned_inputs(dev):
     assert torch.equal(got, gather.row_scatter_multi_plain(idx, vals, K))
 
 
+def test_row_scatter_multi_kernel_refuses_four_payloads(dev):
+    idx = torch.zeros((2, 8), dtype=torch.int32, device=dev)
+    vals = torch.zeros((2, 4, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        gather.row_scatter_multi(idx, vals, 16)
+
+
 # (kind, G, R, P, K): the cases of the schedule test, then rows that fit a
 # block's shared memory (ROW_SMEM_WORDS: the contigs and joins batches'
 # kmer axes) and wider ones (the slow and -c 20 batches'), more rows than
