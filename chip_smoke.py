@@ -1025,18 +1025,35 @@ def kernels(batch, slow_batch, ct_batch, cs_batch, c20_batch, bw, rate,
     # call.  Device ms by site
     from skani_tpu_torch.kernels import device_pipeline
     from skani_tpu_torch.kernels.device_pipeline import phase_a
-    calls = []
-    k1 = device_pipeline.row_gather
 
-    def grab_k1(table, idx, *rest, **kw):
-        calls.append(idx.clone())
-        return k1(table, idx, *rest, **kw)
+    def grab_calls(batch_, names):
+        """The arguments of every call of each device_pipeline kernel
+        wrapper in `names` that one phase_a of batch_ makes, cloned, by
+        name in call order."""
+        beng, _g, bargs, bab, _w = batch_
+        got = {n: [] for n in names}
+        saved = {n: getattr(device_pipeline, n) for n in names}
 
-    device_pipeline.row_gather = grab_k1
-    try:
-        phase_a(eng.db.arrays, ab, **args)
-    finally:
-        device_pipeline.row_gather = k1
+        def wrap(n):
+            def f(*a, **k):
+                got[n].append([x.clone() if torch.is_tensor(x) else x
+                               for x in a])
+                return saved[n](*a, **k)
+            return f
+
+        for n in names:
+            setattr(device_pipeline, n, wrap(n))
+        try:
+            phase_a(beng.db.arrays, bab, **bargs)
+        finally:
+            for n, f in saved.items():
+                setattr(device_pipeline, n, f)
+        missing = [n for n in names if not got[n]]
+        if missing:
+            raise RuntimeError(f"the batch made no call of {missing}")
+        return got
+
+    calls = [c[1] for c in grab_calls(batch, ["row_gather"])["row_gather"]]
     if [list(c.shape) for c in calls] != [[R, P], [R, A]]:
         raise RuntimeError(f"row_gather: the default batch made calls "
                            f"{[list(c.shape) for c in calls]}, not its "
@@ -1092,31 +1109,6 @@ def kernels(batch, slow_batch, ct_batch, cs_batch, c20_batch, bw, rate,
         buf = torch.zeros((R, V, K + 1), dtype=torch.int32, device=dev)
         return lambda: buf.scatter_(2, tl, vals)
 
-    def grab_calls(batch_, names):
-        """The arguments of the first call of each device_pipeline kernel
-        wrapper in `names` that one phase_a of batch_ makes, cloned."""
-        beng, _g, bargs, bab, _w = batch_
-        got, saved = {}, {n: getattr(device_pipeline, n) for n in names}
-
-        def wrap(n):
-            def f(*a, **k):
-                got.setdefault(n, [x.clone() if torch.is_tensor(x) else x
-                                   for x in a])
-                return saved[n](*a, **k)
-            return f
-
-        for n in names:
-            setattr(device_pipeline, n, wrap(n))
-        try:
-            phase_a(beng.db.arrays, bab, **bargs)
-        finally:
-            for n, f in saved.items():
-                setattr(device_pipeline, n, f)
-        missing = [n for n in names if n not in got]
-        if missing:
-            raise RuntimeError(f"the batch made no call of {missing}")
-        return got
-
     # row_scatter_multi: the fused two-payload fill, (R, 2, P) -> (R, 2, A)
     sidx = t(synth.unique_targets(rng, R, P, A))
     svals = t(synth.adversarial_words(rng, (R, 2, P)))
@@ -1137,7 +1129,7 @@ def kernels(batch, slow_batch, ct_batch, cs_batch, c20_batch, bw, rate,
     # the emitting positions, the dropped sentinel A between them) and its
     # two payloads, captured from its phase_a
     fidx, fvals, fK = grab_calls(batch, ["row_scatter_multi"])[
-        "row_scatter_multi"]
+        "row_scatter_multi"][0]
     err, ms, pms, lms = compare(
         "row_scatter_multi[batch]",
         lambda: gather.row_scatter_multi(fidx, fvals, fK),
@@ -1188,7 +1180,8 @@ def kernels(batch, slow_batch, ct_batch, cs_batch, c20_batch, bw, rate,
 
     # the contigs batch's own single-payload fill (its unpacked database
     # takes row_scatter), captured from its phase_a
-    cidx, cvals, cK = grab_calls(ct_batch, ["row_scatter"])["row_scatter"]
+    cidx, cvals, cK = grab_calls(ct_batch, ["row_scatter"])[
+        "row_scatter"][0]
     err, ms, pms, lms = compare(
         "row_scatter[batch]", lambda: gather.row_scatter(cidx, cvals, cK),
         lambda: gather.row_scatter_plain(cidx, cvals, cK), 20, 20,
@@ -1413,7 +1406,7 @@ def kernels(batch, slow_batch, ct_batch, cs_batch, c20_batch, bw, rate,
     # the slow batch's own genome-map gather (its merge join's position
     # map), captured from its phase_a
     gskid, ga, gjw = grab_calls(slow_batch, ["genome_map_gather"])[
-        "genome_map_gather"]
+        "genome_map_gather"][0]
     ga_np = np.clip(ga.cpu().numpy(), 0, gskid.shape[0] - 1)
     gl = ga.long()
     err, ms, pms, lms = compare(
