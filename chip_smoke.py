@@ -74,7 +74,9 @@ line):
              row-mapped call; the fused two-payload fill on the default
              batch's own targets and payloads, the single-payload fill on
              the contigs batch's and the genome-map gather on the slow
-             batch's (each captured from its phase_a); each scatter beside
+             batch's (each captured from its phase_a), each also timed as
+             inside its batch (after a 64 MB write and a write of its
+             inputs: the output's lines are not in L2); each scatter beside
              the one torch call that computes it (scatter_ into a zeroed
              buffer with a column for the dropped targets); the 2-plane
              compact DP also on the default batch's own DP inputs; the
@@ -663,6 +665,31 @@ def device_ms(fn, reps: int = 5):
     return None
 
 
+def device_ms_in_batch(fn, inputs, reps: int = 5):
+    """Device time of this repository's kernels (the _OWN_KERNELS tags) in
+    one fn() call made as inside a batch: after a 64 MB write has filled
+    the L2 with other dirty lines, and after a write of each input, as the
+    batch's previous kernels leave it.  Back to back, the output of the
+    last call is still in L2; inside a batch it is not, and the lines the
+    call evicts go to device memory.  None when five tries reported
+    none of its kernels."""
+    flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
+
+    def step():
+        flush.fill_(1)
+        for x in inputs:
+            x.add_(0)
+        fn()
+
+    for _ in range(5):
+        _span, dev_us = _device_events(step, reps)
+        ms = sum(t / n for k, t, n in dev_us
+                 if n and any(g in k for g in _OWN_KERNELS)) / 1e3
+        if ms > 0:
+            return ms
+    return None
+
+
 def back_to_back_ms(fn, reps: int = 10) -> float:
     """CUDA-event time of `reps` back-to-back fn() calls over their count:
     the stream runs the kernels one after the other, so this is their
@@ -1137,6 +1164,9 @@ def kernels(batch, slow_batch, ct_batch, cs_batch, c20_batch, bw, rate,
         library=scatter_library(fidx, fvals, fK))
     rows.append(dict(name="row_scatter_multi[batch]",
                      counter="row_scatter_multi",
+                     device_ms_in_batch=device_ms_in_batch(
+                         lambda: gather.row_scatter_multi(fidx, fvals, fK),
+                         (fidx, fvals)),
                      shape=[list(fidx.shape), list(fvals.shape),
                             [fidx.shape[0], fvals.shape[1], fK]],
                      err=err, ms=ms, plain_ms=pms, library_ms=lms,
@@ -1187,6 +1217,9 @@ def kernels(batch, slow_batch, ct_batch, cs_batch, c20_batch, bw, rate,
         lambda: gather.row_scatter_plain(cidx, cvals, cK), 20, 20,
         library=scatter_library(cidx, cvals[:, None], cK))
     rows.append(dict(name="row_scatter[batch]", counter="row_scatter",
+                     device_ms_in_batch=device_ms_in_batch(
+                         lambda: gather.row_scatter(cidx, cvals, cK),
+                         (cidx, cvals)),
                      shape=[list(cidx.shape), list(cvals.shape),
                             [cidx.shape[0], cK]],
                      err=err, ms=ms, plain_ms=pms, library_ms=lms,
@@ -1417,6 +1450,9 @@ def kernels(batch, slow_batch, ct_batch, cs_batch, c20_batch, bw, rate,
     (gG, gP), (gR, gK) = gskid.shape, gjw.shape
     rows.append(dict(name="genome_map_gather[batch]",
                      counter="genome_map_gather",
+                     device_ms_in_batch=device_ms_in_batch(
+                         lambda: gather.genome_map_gather(gskid, ga, gjw),
+                         (gjw,)),
                      shape=[[gG, gP], [gR], [gR, gK], [gR, gP]], err=err,
                      ms=ms, plain_ms=pms, library_ms=lms,
                      bytes=gmap_bytes(gskid.cpu().numpy(), ga_np, gK),
@@ -1640,6 +1676,7 @@ def kernels(batch, slow_batch, ct_batch, cs_batch, c20_batch, bw, rate,
               "sites": r.get("sites"), "before_ms": r.get("before_ms"),
               "before_device_ms": r.get("before_device_ms"),
               "dims": r.get("dims"), "kept_targets": r.get("kept_targets"),
+              "device_ms_in_batch": r.get("device_ms_in_batch"),
               "own_launches": r.get("own_launches"),
               "launches_are": r.get("launches_are"), "card": name})
     return rows, {"kernels_checked": len(rows), "tolerance": 0,
@@ -1705,7 +1742,7 @@ def main() -> int:
         for k in ("device_ms_events", "sass_per_step", "sass_per_column",
                   "steps", "lanes", "warps_per_sm", "issue_per_sm_cycle",
                   "sites", "before_ms", "before_device_ms", "dims",
-                  "own_launches", "launches_are"):
+                  "own_launches", "launches_are", "device_ms_in_batch"):
             if r.get(k) is not None:
                 row[k] = r[k]
         table.append(row)
