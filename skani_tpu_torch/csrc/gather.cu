@@ -6,7 +6,8 @@
 // skt_genome_map_gather replaces gather_pallas.py genome_map_gather (K5):
 // out[r, p] = jw[r, skid[a_idx[r], p]], which is K1's gather with a map
 // on the INDEX rows (index row a_idx[r] of skid) instead of the table's;
-// it runs K1's direct kernel in a launch of its own (below).
+// its kernel serves balanced spans of the flattened output with K1's
+// direct loads (below).
 // skt_row_scatter_multi replaces gather_pallas.py
 // mxu_row_scatter_multi_wide (K2): out[r, v, idx[r, p]] = vals[r, v, p],
 // zeros elsewhere, targets outside [0, K) dropped.  The same kernel serves
@@ -45,9 +46,8 @@
 // measured slower wherever the inputs were still in L2.
 // `rows` (int32, clamped into [0, G)) maps output row r to table row
 // rows[r], so callers pass a device table and the batch's genome ids
-// instead of a per-batch copy of the rows; in the direct kernel `irows`
-// (clamped into [0, Gi)) maps it to index row irows[r] the same way (K5's
-// a_idx).
+// instead of a per-batch copy of the rows.  K5's kernel maps output row r
+// to INDEX row irows[r] (a_idx, clamped into [0, Gi)) and table row r.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,7 +57,7 @@ namespace {
 
 constexpr int kGatherThreads = 1024;  // a block of a staging launch
 constexpr int kDirectThreads = 256;   // a block of a direct launch
-constexpr int kRowThreads = 1024;     // a block of K5's row-affine launch
+constexpr int kRowThreads = 1024;     // a block of K5's launch
 constexpr int kUnroll = 4;            // staged: index units in flight
 constexpr int kDirectPer = 4;         // direct: indices in flight
 constexpr int kBulkChunk = 16384;     // bytes per cp.async.bulk
@@ -245,22 +245,51 @@ __device__ __forceinline__ void serve_direct(
 }
 
 // Direct launches: block x of row y serves span x of it.
-template <int PER, int NT>
-__global__ void __launch_bounds__(NT)
+template <int PER>
+__global__ void __launch_bounds__(kDirectThreads)
 row_gather_kernel(const int32_t* __restrict__ table,
                   const int32_t* __restrict__ idx,
                   const int32_t* __restrict__ rows,
-                  const int32_t* __restrict__ irows,
-                  int32_t* __restrict__ out, int G, int Gi, int K, int A) {
+                  int32_t* __restrict__ out, int G, int K, int A) {
   const int64_t r = blockIdx.y;
   const int32_t* trow = table + (int64_t)source_row(rows, (int)r, G) * K;
-  const int32_t* irow = idx + (int64_t)source_row(irows, (int)r, Gi) * A;
   int lo, hi;
   block_span(A, blockIdx.x, gridDim.x, lo, hi);
   const int w = lo + (int)threadIdx.x;
   int ix[PER];
-  load_direct<PER>(irow, w, hi, ix);
-  serve_direct<PER>(trow, irow, out + r * A, w, hi, K, ix);
+  load_direct<PER>(idx + r * A, w, hi, ix);
+  serve_direct<PER>(trow, idx + r * A, out + r * A, w, hi, K, ix);
+}
+
+// K5.  The (R, A) output flattened and cut into gridDim.x balanced spans,
+// one a block: a span lies in one row or runs from the end of one into
+// the next (or, with more rows than blocks, over several), and the block
+// serves it a row segment at a time with the direct path's loads, table
+// row r and index row irows[r] (clamped into [0, Gi)).  Blocks of
+// kRowThreads, one an SM, so that each SM serves about one table row and
+// its L1 caches that row; balanced spans keep every SM busy whatever R
+// is (a launch of sms / R blocks a row leaves sms % R SMs idle).
+template <int PER>
+__global__ void __launch_bounds__(kRowThreads)
+row_gather_flat_kernel(const int32_t* __restrict__ table,
+                       const int32_t* __restrict__ idx,
+                       const int32_t* __restrict__ irows,
+                       int32_t* __restrict__ out, int Gi, int K, int A,
+                       int64_t total) {
+  int64_t lo = total * blockIdx.x / gridDim.x;
+  const int64_t hi = total * (blockIdx.x + 1) / gridDim.x;
+  while (lo < hi) {
+    const int r = (int)(lo / A);
+    const int a0 = (int)(lo - (int64_t)r * A);
+    const int a1 = (int)min((int64_t)A, a0 + (hi - lo));
+    const int32_t* irow = idx + (int64_t)source_row(irows, r, Gi) * A;
+    const int w = a0 + (int)threadIdx.x;
+    int ix[PER];
+    load_direct<PER>(irow, w, a1, ix);
+    serve_direct<PER>(table + (int64_t)r * K, irow, out + (int64_t)r * A,
+                      w, a1, K, ix);
+    lo += a1 - a0;
+  }
 }
 
 // Staging launches: block x of row y serves span x of it (spans of over
@@ -506,39 +535,38 @@ int gather(const int32_t* table, const int32_t* idx, const int32_t* rows,
   // direct: one index a thread where that fills the card at most once,
   // else kDirectPer, one block a kDirectThreads * that many indices
   if ((int64_t)A * R <= (int64_t)c.sms * c.threads_sm) {
-    row_gather_kernel<1, kDirectThreads>
+    row_gather_kernel<1>
         <<<dim3((A + kDirectThreads - 1) / kDirectThreads, R),
-            kDirectThreads, 0, st>>>(table, idx, rows, nullptr, out, G, R,
-                                     K, A);
+            kDirectThreads, 0, st>>>(table, idx, rows, out, G, K, A);
   } else {
     constexpr int per_block = kDirectThreads * kDirectPer;
-    row_gather_kernel<kDirectPer, kDirectThreads>
+    row_gather_kernel<kDirectPer>
         <<<dim3((A + per_block - 1) / per_block, R), kDirectThreads, 0,
-            st>>>(table, idx, rows, nullptr, out, G, R, K, A);
+            st>>>(table, idx, rows, out, G, K, A);
   }
   return (int)cudaGetLastError();
 }
 
-// K5's launch: row-affine, sms / R blocks a row (at least one) of
-// kRowThreads threads, so that each SM serves one jw row at a time and
-// its L1 (the kernel asks for the largest L1 share of the SM's 256 KB)
-// holds as much of that row as fits.  skid's positions map to kmer ids in
-// no order, so the jw reads are random: through L2 each pulls a 32-byte
-// sector, and the rate of those requests, not DRAM, bounds the gather.
-// A row of up to ~200 KB (the contigs and joins batches') is served from
-// L1 after its first touch, as if staged, without the copy; a wider row
+// K5's launch: one block of kRowThreads an SM (fewer where the output
+// has fewer than kRowThreads words a block), the kernel asking for the
+// largest L1 share of the SM's 256 KB.  skid's positions map to kmer ids
+// in no order, so the jw reads are random: through L2 each pulls a 32-byte
+// sector, and the rate of those requests, not DRAM, bounds the gather.  A
+// row of up to ~200 KB (the contigs and joins batches') is served from L1
+// after its first touch, as if staged, without the copy; a wider row
 // (slow, -c 20) hits L1 in proportion.  skid rows are read once a row;
 // rows that share a genome find its skid row in L2.
 int genome_map(const int32_t* skid, const int32_t* a_idx, const int32_t* jw,
                int32_t* out, int G, int R, int P, int K, cudaStream_t st) {
-  const Card& c = card();
   static const cudaError_t set = cudaFuncSetAttribute(
-      row_gather_kernel<kDirectPer, kRowThreads>,
+      row_gather_flat_kernel<kDirectPer>,
       cudaFuncAttributePreferredSharedMemoryCarveout, 0);
   if (set != cudaSuccess) return (int)set;
-  row_gather_kernel<kDirectPer, kRowThreads>
-      <<<dim3(max(1, c.sms / R), R), kRowThreads, 0, st>>>(
-          jw, skid, nullptr, a_idx, out, R, G, K, P);
+  const int64_t total = (int64_t)R * P;
+  const int blocks = (int)min((int64_t)card().sms,
+                              (total + kRowThreads - 1) / kRowThreads);
+  row_gather_flat_kernel<kDirectPer><<<blocks, kRowThreads, 0, st>>>(
+      jw, skid, a_idx, out, G, K, P, total);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 """The schedules of the Hopper kernels for the unique-target scatter (K2,
 K6, K7: csrc/gather.cu row_scatter_kernel) and for genome_map_gather (K5:
-the row-affine launch of row_gather_kernel), emulated block by block in
+row_gather_flat_kernel), emulated block by block in
 numpy on the CPU and held bit for bit against the plain versions and the
 JAX package's kernels (Pallas in interpret mode).
 
@@ -18,10 +18,12 @@ The scatter emulation follows skt_row_scatter_multi:
   * every output word is stored by exactly one block, and no tile word is
     written twice (unique targets: no atomics).
 
-The K5 emulation follows skt_genome_map_gather: sms // R blocks a row
-(at least 1), each a balanced span of the row's positions, 1024 threads
-with 4 positions in flight a round; index row a_idx[r] of skid (clamped
-into [0, G)), table row r of jw, skid values clamped into [0, K).
+The K5 emulation follows skt_genome_map_gather: min(sms, ceil(R * P /
+1024)) blocks of 1024 threads, block b serving words [b * R * P / nb,
+(b + 1) * R * P / nb) of the flattened output a row segment at a time, 4
+positions a thread in flight a round; index row a_idx[r] of skid
+(clamped into [0, G)), table row r of jw, skid values clamped into
+[0, K).
 
 The emulated card's SM count and shared memory are parameters, so the
 tile and span rules are exercised at small shapes.  Where an input lies
@@ -110,17 +112,28 @@ def emulate_scatter(idx, vals, K, sms=H100_SMS, smem_bytes=SMEM_BYTES):
 def emulate_genome_map(skid, a_idx, jw, sms=H100_SMS):
     G, P = skid.shape
     R, K = jw.shape
-    nb = max(1, sms // R)
+    total = R * P
+    nb = min(sms, _cdiv(total, ROW_THREADS))
     out = np.full((R, P), 0x5A5A5A5A, I32)
     stores = np.zeros((R, P), np.int64)
-    for r in range(R):
-        irow = skid[min(max(int(a_idx[r]), 0), G - 1)]
-        for b in range(nb):
-            lo, hi = P * b // nb, P * (b + 1) // nb
-            w = _rounds(lo, hi, ROW_THREADS, UNROLL)
+    rows_a_block = []
+    for b in range(nb):
+        lo, hi = total * b // nb, total * (b + 1) // nb
+        rows = []
+        while lo < hi:                    # a row segment at a time
+            r = lo // P
+            a0 = lo - r * P
+            a1 = min(P, a0 + (hi - lo))
+            irow = skid[min(max(int(a_idx[r]), 0), G - 1)]
+            w = _rounds(a0, a1, ROW_THREADS, UNROLL)
             out[r, w] = jw[r, np.clip(irow[w], 0, K - 1)]
             stores[r, w] += 1
+            rows.append(r)
+            lo += a1 - a0
+        rows_a_block.append(len(rows))
     assert (stores == 1).all()
+    # each block serves about one row: at most two when R <= blocks
+    assert R > nb or max(rows_a_block) <= 2
     return out
 
 
@@ -188,7 +201,8 @@ _CASES = [
      (16, SMEM_BYTES)),
     ("gmap_out_of_range", "gmap", "out_of_range", (5, 7, 4096, 300),
      (H100_SMS, SMEM_BYTES)),
-    # more rows than SMs (a block a row); P % 4 != 0, K % 128 != 0
+    # more rows than blocks (a block over several rows); P % 4 != 0,
+    # K % 128 != 0
     ("gmap_rows_gt_sms", "gmap", "unsorted", (3, 12, 4099, 1001),
      (8, SMEM_BYTES)),
 ]
