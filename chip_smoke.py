@@ -615,14 +615,13 @@ def joins(batch):
                       "P": eng.db.P, "U": eng.db.U, "K": eng.db.K}
 
 
-# this repository's kernels by name, the first tag a name holds taking it:
-# K5's launch of row_gather_kernel (1024 threads) before K1's; the scatter
-# and K5 kernels of earlier trees (row_scatter_multi_kernel and its
-# zero_kernel, genome_map_gather_kernel) so that a parent tree reads alike
-_OWN_KERNELS = ("row_gather_kernel<4, 1024>", "row_gather_kernel",
-                "row_gather_staged_kernel", "row_scatter_kernel",
-                "row_scatter_multi_kernel", "zero_kernel",
-                "windowed_gather_kernel", "genome_map_gather_kernel",
+# this repository's kernels by name, the first tag a name holds taking it;
+# the scatter of earlier trees (row_scatter_multi_kernel and its
+# zero_kernel) too, so that a parent tree reads alike
+_OWN_KERNELS = ("row_gather_kernel", "row_gather_staged_kernel",
+                "row_scatter_kernel", "row_scatter_multi_kernel",
+                "zero_kernel", "windowed_gather_kernel",
+                "genome_map_rows_kernel", "genome_map_gather_kernel",
                 "dp_compact_kernel", "dp_wide_kernel",
                 "dp_chain_packed_kernel", "dp_chain_kernel", "expand_kernel")
 

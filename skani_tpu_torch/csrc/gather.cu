@@ -6,8 +6,7 @@
 // skt_genome_map_gather replaces gather_pallas.py genome_map_gather (K5):
 // out[r, p] = jw[r, skid[a_idx[r], p]], which is K1's gather with a map
 // on the INDEX rows (index row a_idx[r] of skid) instead of the table's;
-// its kernel serves balanced spans of the flattened output with K1's
-// direct loads (below).
+// its row-affine kernel serves each row with K1's direct loads (below).
 // skt_row_scatter_multi replaces gather_pallas.py
 // mxu_row_scatter_multi_wide (K2): out[r, v, idx[r, p]] = vals[r, v, p],
 // zeros elsewhere, targets outside [0, K) dropped.  The same kernel serves
@@ -261,35 +260,24 @@ row_gather_kernel(const int32_t* __restrict__ table,
   serve_direct<PER>(trow, idx + r * A, out + r * A, w, hi, K, ix);
 }
 
-// K5.  The (R, A) output flattened and cut into gridDim.x balanced spans,
-// one a block: a span lies in one row or runs from the end of one into
-// the next (or, with more rows than blocks, over several), and the block
-// serves it a row segment at a time with the direct path's loads, table
-// row r and index row irows[r] (clamped into [0, Gi)).  Blocks of
-// kRowThreads, one an SM, so that each SM serves about one table row and
-// its L1 caches that row; balanced spans keep every SM busy whatever R
-// is (a launch of sms / R blocks a row leaves sms % R SMs idle).
+// K5, row-affine: block x of row y serves span x of it through the
+// direct path's loads, table row y and index row irows[y] (clamped into
+// [0, Gi)).  Blocks of kRowThreads, sms / R a row, one an SM, so that each
+// SM serves one table row and its L1 caches that row.
 template <int PER>
 __global__ void __launch_bounds__(kRowThreads)
-row_gather_flat_kernel(const int32_t* __restrict__ table,
+genome_map_rows_kernel(const int32_t* __restrict__ table,
                        const int32_t* __restrict__ idx,
                        const int32_t* __restrict__ irows,
-                       int32_t* __restrict__ out, int Gi, int K, int A,
-                       int64_t total) {
-  int64_t lo = total * blockIdx.x / gridDim.x;
-  const int64_t hi = total * (blockIdx.x + 1) / gridDim.x;
-  while (lo < hi) {
-    const int r = (int)(lo / A);
-    const int a0 = (int)(lo - (int64_t)r * A);
-    const int a1 = (int)min((int64_t)A, a0 + (hi - lo));
-    const int32_t* irow = idx + (int64_t)source_row(irows, r, Gi) * A;
-    const int w = a0 + (int)threadIdx.x;
-    int ix[PER];
-    load_direct<PER>(irow, w, a1, ix);
-    serve_direct<PER>(table + (int64_t)r * K, irow, out + (int64_t)r * A,
-                      w, a1, K, ix);
-    lo += a1 - a0;
-  }
+                       int32_t* __restrict__ out, int Gi, int K, int A) {
+  const int64_t r = blockIdx.y;
+  const int32_t* irow = idx + (int64_t)source_row(irows, (int)r, Gi) * A;
+  int lo, hi;
+  block_span(A, blockIdx.x, gridDim.x, lo, hi);
+  const int w = lo + (int)threadIdx.x;
+  int ix[PER];
+  load_direct<PER>(irow, w, hi, ix);
+  serve_direct<PER>(table + r * K, irow, out + r * A, w, hi, K, ix);
 }
 
 // Staging launches: block x of row y serves span x of it (spans of over
@@ -480,6 +468,20 @@ __global__ void windowed_gather_kernel(
   }
 }
 
+// K5, one thread a position (the form of the port's first K5 kernel),
+// for the launches where the row-affine grid would leave SMs idle.
+__global__ void genome_map_gather_kernel(const int32_t* __restrict__ skid,
+                                         const int32_t* __restrict__ a_idx,
+                                         const int32_t* __restrict__ jw,
+                                         int32_t* __restrict__ out,
+                                         int G, int P, int K) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  const int64_t r = blockIdx.y;
+  const int j = clamp_row(skid[(int64_t)clamp_row(a_idx[r], G) * P + p], K);
+  out[r * P + p] = __ldg(jw + r * K + j);
+}
+
 // K1's launches.  Staging (blocks of kGatherThreads) is offered where the
 // row fits in a block's shared memory and where each block of one wave
 // (the blocks the SMs hold at a time, shared among the R rows) then serves
@@ -547,26 +549,35 @@ int gather(const int32_t* table, const int32_t* idx, const int32_t* rows,
   return (int)cudaGetLastError();
 }
 
-// K5's launch: one block of kRowThreads an SM (fewer where the output
-// has fewer than kRowThreads words a block), the kernel asking for the
-// largest L1 share of the SM's 256 KB.  skid's positions map to kmer ids
-// in no order, so the jw reads are random: through L2 each pulls a 32-byte
-// sector, and the rate of those requests, not DRAM, bounds the gather.  A
-// row of up to ~200 KB (the contigs and joins batches') is served from L1
-// after its first touch, as if staged, without the copy; a wider row
-// (slow, -c 20) hits L1 in proportion.  skid rows are read once a row;
-// rows that share a genome find its skid row in L2.
+// K5's launch.  skid's positions map to kmer ids in no order, so the jw
+// reads are random: through L2 each pulls a 32-byte sector, and the rate
+// of those requests, not DRAM, bounds the gather.  The row-affine launch
+// (sms / R blocks of kRowThreads a row, the kernel asking for the largest
+// L1 share of the SM's 256 KB) gives each SM one jw row, so that a row of
+// up to ~200 KB (the contigs and joins batches') is served from L1 after
+// its first touch, as if staged, without the copy, and a wider one (slow)
+// hits L1 in proportion.  Where that grid would leave more than a tenth
+// of the SMs idle (R over the SM count, or sms % R large: R 29 leaves 16
+// of 132), one thread a position over the whole card measured faster
+// inside the batch (-c 20's R 29); it takes that launch.  skid rows are
+// read once a row; rows that share a genome find theirs in L2.
 int genome_map(const int32_t* skid, const int32_t* a_idx, const int32_t* jw,
                int32_t* out, int G, int R, int P, int K, cudaStream_t st) {
-  static const cudaError_t set = cudaFuncSetAttribute(
-      row_gather_flat_kernel<kDirectPer>,
-      cudaFuncAttributePreferredSharedMemoryCarveout, 0);
-  if (set != cudaSuccess) return (int)set;
-  const int64_t total = (int64_t)R * P;
-  const int blocks = (int)min((int64_t)card().sms,
-                              (total + kRowThreads - 1) / kRowThreads);
-  row_gather_flat_kernel<kDirectPer><<<blocks, kRowThreads, 0, st>>>(
-      jw, skid, a_idx, out, G, K, P, total);
+  const Card& c = card();
+  const int nb = c.sms / R;
+  if (nb >= 1 && 10 * nb * R >= 9 * c.sms) {
+    static const cudaError_t set = cudaFuncSetAttribute(
+        genome_map_rows_kernel<kDirectPer>,
+        cudaFuncAttributePreferredSharedMemoryCarveout, 0);
+    if (set != cudaSuccess) return (int)set;
+    genome_map_rows_kernel<kDirectPer>
+        <<<dim3(nb, R), kRowThreads, 0, st>>>(jw, skid, a_idx, out, G, K,
+                                              P);
+  } else {
+    genome_map_gather_kernel<<<dim3((P + kThreads - 1) / kThreads, R),
+                               kThreads, 0, st>>>(skid, a_idx, jw, out, G,
+                                                  P, K);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -32,10 +32,10 @@ streams, row-local table reads (for the windowed gather's ascending
 indices, coalesced).  row_gather reads its table row through L2, or,
 where the row fits in a block's shared memory (ROW_SMEM_WORDS) and the
 shape makes a copy pay, from a copy that each block stages there unless
-its first 32 indices are nondecreasing.  genome_map_gather runs one block
-of 1024 threads an SM over balanced spans of the flattened output, so
-that each SM serves about one jw row and its L1 holds as much of that
-row as fits.  The scatters own their output:
+its first 32 indices are nondecreasing.  genome_map_gather's launch gives
+each SM one jw row (sms / R blocks of 1024 threads a row), so that the
+SM's L1 holds as much of that row as fits, unless that grid would leave
+more than a tenth of the SMs idle; then one thread a position.  The scatters own their output:
 a block zeroes a tile of one row's V planes in shared memory, writes the
 payloads whose targets fall in it, and stores it once; the tiles give
 each SM one block (more where a row's V planes need more tiles to fit).

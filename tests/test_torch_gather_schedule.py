@@ -1,6 +1,7 @@
 """The schedules of the Hopper kernels for the unique-target scatter (K2,
 K6, K7: csrc/gather.cu row_scatter_kernel) and for genome_map_gather (K5:
-row_gather_flat_kernel), emulated block by block in
+genome_map_rows_kernel and genome_map_gather_kernel), emulated block by
+block in
 numpy on the CPU and held bit for bit against the plain versions and the
 JAX package's kernels (Pallas in interpret mode).
 
@@ -18,12 +19,12 @@ The scatter emulation follows skt_row_scatter_multi:
   * every output word is stored by exactly one block, and no tile word is
     written twice (unique targets: no atomics).
 
-The K5 emulation follows skt_genome_map_gather: min(sms, ceil(R * P /
-1024)) blocks of 1024 threads, block b serving words [b * R * P / nb,
-(b + 1) * R * P / nb) of the flattened output a row segment at a time, 4
-positions a thread in flight a round; index row a_idx[r] of skid
-(clamped into [0, G)), table row r of jw, skid values clamped into
-[0, K).
+The K5 emulation follows skt_genome_map_gather: the row-affine launch,
+sms // R blocks of 1024 threads a row, each a balanced span of the row
+with 4 positions a thread in flight a round, where that grid keeps at
+least nine tenths of the SMs busy; else one thread a position in blocks
+of 256.  Index row a_idx[r] of skid (clamped into [0, G)), table row r
+of jw, skid values clamped into [0, K).
 
 The emulated card's SM count and shared memory are parameters, so the
 tile and span rules are exercised at small shapes.  Where an input lies
@@ -109,31 +110,31 @@ def emulate_scatter(idx, vals, K, sms=H100_SMS, smem_bytes=SMEM_BYTES):
     return out
 
 
+def genome_map_launch(R, sms=H100_SMS):
+    """Blocks a row of the row-affine launch, or 0 where that grid would
+    leave more than a tenth of the SMs idle and the launch takes one
+    thread a position, as csrc/gather.cu genome_map() picks."""
+    nb = sms // R
+    return nb if nb >= 1 and 10 * nb * R >= 9 * sms else 0
+
+
 def emulate_genome_map(skid, a_idx, jw, sms=H100_SMS):
     G, P = skid.shape
     R, K = jw.shape
-    total = R * P
-    nb = min(sms, _cdiv(total, ROW_THREADS))
+    nb = genome_map_launch(R, sms)
     out = np.full((R, P), 0x5A5A5A5A, I32)
     stores = np.zeros((R, P), np.int64)
-    rows_a_block = []
-    for b in range(nb):
-        lo, hi = total * b // nb, total * (b + 1) // nb
-        rows = []
-        while lo < hi:                    # a row segment at a time
-            r = lo // P
-            a0 = lo - r * P
-            a1 = min(P, a0 + (hi - lo))
-            irow = skid[min(max(int(a_idx[r]), 0), G - 1)]
-            w = _rounds(a0, a1, ROW_THREADS, UNROLL)
+    for r in range(R):
+        irow = skid[min(max(int(a_idx[r]), 0), G - 1)]
+        if nb:                  # row-affine: nb balanced spans of the row
+            spans = [(P * b // nb, P * (b + 1) // nb) for b in range(nb)]
+            ws = [_rounds(lo, hi, ROW_THREADS, UNROLL) for lo, hi in spans]
+        else:                   # one thread a position, blocks of 256
+            ws = [np.arange(b, min(b + 256, P)) for b in range(0, P, 256)]
+        for w in ws:
             out[r, w] = jw[r, np.clip(irow[w], 0, K - 1)]
             stores[r, w] += 1
-            rows.append(r)
-            lo += a1 - a0
-        rows_a_block.append(len(rows))
     assert (stores == 1).all()
-    # each block serves about one row: at most two when R <= blocks
-    assert R > nb or max(rows_a_block) <= 2
     return out
 
 
@@ -201,7 +202,7 @@ _CASES = [
      (16, SMEM_BYTES)),
     ("gmap_out_of_range", "gmap", "out_of_range", (5, 7, 4096, 300),
      (H100_SMS, SMEM_BYTES)),
-    # more rows than blocks (a block over several rows); P % 4 != 0,
+    # more rows than SMs (one thread a position); P % 4 != 0,
     # K % 128 != 0
     ("gmap_rows_gt_sms", "gmap", "unsorted", (3, 12, 4099, 1001),
      (8, SMEM_BYTES)),
@@ -246,6 +247,15 @@ def test_gather_schedule_matches_plain_and_pallas(name, kernel, kind, shape,
                                       np.repeat(jw[:, :1], P // 8, axis=1))
     np.testing.assert_array_equal(got, plain)
     np.testing.assert_array_equal(got, want)
+
+
+def test_genome_map_launch_at_the_main_path_shapes():
+    """The slow, contigs and joins batches (R 32, 33) take the row-affine
+    launch; -c 20's R 29 (116 of 132 SMs) and more rows than SMs take
+    one thread a position."""
+    assert genome_map_launch(32) == 4 and genome_map_launch(33) == 4
+    assert genome_map_launch(29) == 0 and genome_map_launch(200) == 0
+    assert genome_map_launch(1) == 132 and genome_map_launch(9) == 14
 
 
 def test_scatter_tile_rule_at_the_main_path_shapes():
