@@ -74,7 +74,9 @@ line):
              row-mapped call; the fused two-payload fill on the default
              batch's own targets and payloads, the single-payload fill on
              the contigs batch's and the genome-map gather on the slow
-             batch's (each captured from its phase_a), each also timed as
+             and `-c 20` batches' (one row each: the row-affine launch and
+             the one-thread-a-position launch; each captured from its
+             phase_a), each also timed as
              inside its batch (after a 64 MB write and a write of its
              inputs: the output's lines are not in L2); each scatter beside
              the one torch call that computes it (scatter_ into a zeroed
@@ -615,13 +617,11 @@ def joins(batch):
                       "P": eng.db.P, "U": eng.db.U, "K": eng.db.K}
 
 
-# this repository's kernels by name, the first tag a name holds taking it;
-# the scatter of earlier trees (row_scatter_multi_kernel and its
-# zero_kernel) too, so that a parent tree reads alike
-_OWN_KERNELS = ("row_gather_kernel", "row_gather_staged_kernel",
-                "row_scatter_kernel", "row_scatter_multi_kernel",
-                "zero_kernel", "windowed_gather_kernel",
-                "genome_map_rows_kernel", "genome_map_gather_kernel",
+# this repository's kernels by name, the first tag a name holds taking it
+# (K5's row-affine launch is K1's direct kernel with the index-row map)
+_OWN_KERNELS = ("row_gather_kernel<4, 1024, true>", "row_gather_kernel",
+                "row_gather_staged_kernel", "row_scatter_kernel",
+                "windowed_gather_kernel", "genome_map_gather_kernel",
                 "dp_compact_kernel", "dp_wide_kernel",
                 "dp_chain_packed_kernel", "dp_chain_kernel", "expand_kernel")
 
@@ -958,7 +958,7 @@ def kernels(batch, slow_batch, ct_batch, cs_batch, c20_batch, bw, rate,
     at the default batch's shapes (the only path that gives the scatters P
     <= 65536); the windowed gather, the genome map gather and the 3-plane
     DP at the slow batch's; the padded DP at the many-contig slow batch's
-    and the -c 20 batch's; then the microbenchmarks' contracts (K12) at
+    and the -c 20 batch's, where the genome map gather also runs; then the microbenchmarks' contracts (K12) at
     their scripts' shapes.  Bounds: bytes over the card's memory rate, DP
     operations over its int32 lane rate (`rate`, from int32_rate())."""
     from skani_tpu_torch import synth
@@ -1435,32 +1435,35 @@ def kernels(batch, slow_batch, ct_batch, cs_batch, c20_batch, bw, rate,
                      source="skani_tpu_torch/csrc/gather.cu",
                      replaces="skani_tpu/kernels/gather_pallas.py:561"))
 
-    # the slow batch's own genome-map gather (its merge join's position
-    # map), captured from its phase_a
-    gskid, ga, gjw = grab_calls(slow_batch, ["genome_map_gather"])[
-        "genome_map_gather"][0]
-    ga_np = np.clip(ga.cpu().numpy(), 0, gskid.shape[0] - 1)
-    gl = ga.long()
-    err, ms, pms, lms = compare(
-        "genome_map_gather[batch]",
-        lambda: gather.genome_map_gather(gskid, ga, gjw),
-        lambda: gather.genome_map_gather_plain(gskid, ga, gjw), 20, 20,
-        library=lambda: torch.gather(gjw, 1, gskid[gl].long()))
-    (gG, gP), (gR, gK) = gskid.shape, gjw.shape
-    rows.append(dict(name="genome_map_gather[batch]",
-                     counter="genome_map_gather",
-                     device_ms_in_batch=device_ms_in_batch(
-                         lambda: gather.genome_map_gather(gskid, ga, gjw),
-                         (gjw,)),
-                     shape=[[gG, gP], [gR], [gR, gK], [gR, gP]], err=err,
-                     ms=ms, plain_ms=pms, library_ms=lms,
-                     bytes=gmap_bytes(gskid.cpu().numpy(), ga_np, gK),
-                     ops=2 * gR * gP, per_batch=1,
-                     dims={"G": gG, "R": gR, "P": gP, "K": gK,
-                           "distinct_genomes": int(np.unique(ga_np).size)},
-                     source="skani_tpu_torch/csrc/gather.cu",
-                     replaces="skani_tpu/kernels/gather_pallas.py:561"))
-    del gskid, ga, gjw, gl
+    # the genome-map gathers of the slow batch (its merge join's position
+    # map; the row-affine launch) and of the -c 20 batch (R 29: one thread
+    # a position), captured from their phase_a
+    for gname, gbatch in (("genome_map_gather[batch]", slow_batch),
+                          ("genome_map_gather[c20]", c20_batch)):
+        gskid, ga, gjw = grab_calls(gbatch, ["genome_map_gather"])[
+            "genome_map_gather"][0]
+        ga_np = np.clip(ga.cpu().numpy(), 0, gskid.shape[0] - 1)
+        gl = ga.long()
+        err, ms, pms, lms = compare(
+            gname, lambda: gather.genome_map_gather(gskid, ga, gjw),
+            lambda: gather.genome_map_gather_plain(gskid, ga, gjw), 20, 20,
+            library=lambda: torch.gather(gjw, 1, gskid[gl].long()))
+        (gG, gP), (gR, gK) = gskid.shape, gjw.shape
+        rows.append(dict(name=gname, counter="genome_map_gather",
+                         device_ms_in_batch=device_ms_in_batch(
+                             lambda: gather.genome_map_gather(gskid, ga,
+                                                              gjw),
+                             (gjw,)),
+                         shape=[[gG, gP], [gR], [gR, gK], [gR, gP]],
+                         err=err, ms=ms, plain_ms=pms, library_ms=lms,
+                         bytes=gmap_bytes(gskid.cpu().numpy(), ga_np, gK),
+                         ops=2 * gR * gP, per_batch=1,
+                         dims={"G": gG, "R": gR, "P": gP, "K": gK,
+                               "distinct_genomes":
+                               int(np.unique(ga_np).size)},
+                         source="skani_tpu_torch/csrc/gather.cu",
+                         replaces="skani_tpu/kernels/gather_pallas.py:561"))
+        del gskid, ga, gjw, gl
 
     # dp_chain_compact_wide at the slow batch's shape (ring 128); its plain
     # version walks S + H steps of ~50 launches each, so it runs once

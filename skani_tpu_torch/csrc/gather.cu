@@ -6,7 +6,7 @@
 // skt_genome_map_gather replaces gather_pallas.py genome_map_gather (K5):
 // out[r, p] = jw[r, skid[a_idx[r], p]], which is K1's gather with a map
 // on the INDEX rows (index row a_idx[r] of skid) instead of the table's;
-// its row-affine kernel serves each row with K1's direct loads (below).
+// its row-affine launch is K1's direct kernel with that map (below).
 // skt_row_scatter_multi replaces gather_pallas.py
 // mxu_row_scatter_multi_wide (K2): out[r, v, idx[r, p]] = vals[r, v, p],
 // zeros elsewhere, targets outside [0, K) dropped.  The same kernel serves
@@ -45,8 +45,8 @@
 // measured slower wherever the inputs were still in L2.
 // `rows` (int32, clamped into [0, G)) maps output row r to table row
 // rows[r], so callers pass a device table and the batch's genome ids
-// instead of a per-batch copy of the rows.  K5's kernel maps output row r
-// to INDEX row irows[r] (a_idx, clamped into [0, Gi)) and table row r.
+// instead of a per-batch copy of the rows.  K5's row-affine launch maps
+// output row r to INDEX row a_idx[r] (clamped into [0, G)) and table row r.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -243,41 +243,26 @@ __device__ __forceinline__ void serve_direct(
   }
 }
 
-// Direct launches: block x of row y serves span x of it.
-template <int PER>
-__global__ void __launch_bounds__(kDirectThreads)
+// Direct launches: block x of row y serves span x of it.  K1 (MAP_IDX
+// false) reads table row rows[y] (clamped into [0, G)) at index row y;
+// K5 (MAP_IDX true) reads table row y at index row rows[y] (clamped into
+// [0, G), G then the index rows' count).  Blocks of NT threads.
+template <int PER, int NT, bool MAP_IDX>
+__global__ void __launch_bounds__(NT)
 row_gather_kernel(const int32_t* __restrict__ table,
                   const int32_t* __restrict__ idx,
                   const int32_t* __restrict__ rows,
                   int32_t* __restrict__ out, int G, int K, int A) {
   const int64_t r = blockIdx.y;
-  const int32_t* trow = table + (int64_t)source_row(rows, (int)r, G) * K;
-  int lo, hi;
-  block_span(A, blockIdx.x, gridDim.x, lo, hi);
-  const int w = lo + (int)threadIdx.x;
-  int ix[PER];
-  load_direct<PER>(idx + r * A, w, hi, ix);
-  serve_direct<PER>(trow, idx + r * A, out + r * A, w, hi, K, ix);
-}
-
-// K5, row-affine: block x of row y serves span x of it through the
-// direct path's loads, table row y and index row irows[y] (clamped into
-// [0, Gi)).  Blocks of kRowThreads, sms / R a row, one an SM, so that each
-// SM serves one table row and its L1 caches that row.
-template <int PER>
-__global__ void __launch_bounds__(kRowThreads)
-genome_map_rows_kernel(const int32_t* __restrict__ table,
-                       const int32_t* __restrict__ idx,
-                       const int32_t* __restrict__ irows,
-                       int32_t* __restrict__ out, int Gi, int K, int A) {
-  const int64_t r = blockIdx.y;
-  const int32_t* irow = idx + (int64_t)source_row(irows, (int)r, Gi) * A;
+  const int64_t m = source_row(rows, (int)r, G);
+  const int32_t* trow = table + (MAP_IDX ? r : m) * K;
+  const int32_t* irow = idx + (MAP_IDX ? m : r) * A;
   int lo, hi;
   block_span(A, blockIdx.x, gridDim.x, lo, hi);
   const int w = lo + (int)threadIdx.x;
   int ix[PER];
   load_direct<PER>(irow, w, hi, ix);
-  serve_direct<PER>(table + r * K, irow, out + r * A, w, hi, K, ix);
+  serve_direct<PER>(trow, irow, out + r * A, w, hi, K, ix);
 }
 
 // Staging launches: block x of row y serves span x of it (spans of over
@@ -537,12 +522,12 @@ int gather(const int32_t* table, const int32_t* idx, const int32_t* rows,
   // direct: one index a thread where that fills the card at most once,
   // else kDirectPer, one block a kDirectThreads * that many indices
   if ((int64_t)A * R <= (int64_t)c.sms * c.threads_sm) {
-    row_gather_kernel<1>
+    row_gather_kernel<1, kDirectThreads, false>
         <<<dim3((A + kDirectThreads - 1) / kDirectThreads, R),
             kDirectThreads, 0, st>>>(table, idx, rows, out, G, K, A);
   } else {
     constexpr int per_block = kDirectThreads * kDirectPer;
-    row_gather_kernel<kDirectPer>
+    row_gather_kernel<kDirectPer, kDirectThreads, false>
         <<<dim3((A + per_block - 1) / per_block, R), kDirectThreads, 0,
             st>>>(table, idx, rows, out, G, K, A);
   }
@@ -567,10 +552,10 @@ int genome_map(const int32_t* skid, const int32_t* a_idx, const int32_t* jw,
   const int nb = c.sms / R;
   if (nb >= 1 && 10 * nb * R >= 9 * c.sms) {
     static const cudaError_t set = cudaFuncSetAttribute(
-        genome_map_rows_kernel<kDirectPer>,
+        row_gather_kernel<kDirectPer, kRowThreads, true>,
         cudaFuncAttributePreferredSharedMemoryCarveout, 0);
     if (set != cudaSuccess) return (int)set;
-    genome_map_rows_kernel<kDirectPer>
+    row_gather_kernel<kDirectPer, kRowThreads, true>
         <<<dim3(nb, R), kRowThreads, 0, st>>>(jw, skid, a_idx, out, G, K,
                                               P);
   } else {

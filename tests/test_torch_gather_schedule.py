@@ -1,9 +1,9 @@
 """The schedules of the Hopper kernels for the unique-target scatter (K2,
 K6, K7: csrc/gather.cu row_scatter_kernel) and for genome_map_gather (K5:
-genome_map_rows_kernel and genome_map_gather_kernel), emulated block by
-block in
-numpy on the CPU and held bit for bit against the plain versions and the
-JAX package's kernels (Pallas in interpret mode).
+row_gather_kernel with the index-row map, and genome_map_gather_kernel),
+emulated block by block in numpy on the CPU and held bit for bit against
+the plain versions and the JAX package's kernels (Pallas in interpret
+mode).
 
 The scatter emulation follows skt_row_scatter_multi:
 
@@ -27,12 +27,14 @@ of 256.  Index row a_idx[r] of skid (clamped into [0, G)), table row r
 of jw, skid values clamped into [0, K).
 
 The emulated card's SM count and shared memory are parameters, so the
-tile and span rules are exercised at small shapes.  Where an input lies
+tile and span rules are exercised at small shapes.  Where a shape lies
 outside the TPU kernel's domain (K not a multiple of 128, P not a multiple
-of its chunk, a genome id or skid value out of range) the JAX kernel runs
-on the input padded or clamped as the port's contract reads it: padding
-targets and positions that drop or are sliced off, and clamped ids and
-values.  Tolerance: exact (int32 words).
+of its chunk) the JAX kernel runs on the input padded: padding targets
+and positions that drop or are sliced off.  Genome ids and skid values
+out of range lie outside the JAX kernel's domain: there the emulation and
+the plain version are held against the port's contract written out by
+hand (ids and values clamped), and against the JAX kernel only on the
+rows and positions inside its domain.  Tolerance: exact (int32 words).
 """
 import numpy as np
 import pytest
@@ -156,18 +158,19 @@ def _jax_scatter(idx, vals, K):
 
 
 def _jax_genome_map(skid, a_idx, jw):
-    """The TPU kernel on the input as the port's contract reads it: genome
-    ids and skid values clamped, P padded to a multiple of 4096 (positions
+    """The TPU kernel on an input inside its domain (genome ids in [0, G),
+    skid values in [0, K)), P padded to a multiple of 4096 (positions
     sliced off) and K to a multiple of 128 (columns never read)."""
     G, P = skid.shape
     R, K = jw.shape
+    assert ((a_idx >= 0) & (a_idx < G)).all()
+    assert ((skid >= 0) & (skid < K)).all()
     P2, K2 = _cdiv(P, 4096) * 4096, _cdiv(K, 128) * 128
     sk = np.zeros((G, P2), I32)
-    sk[:, :P] = np.clip(skid, 0, K - 1)
+    sk[:, :P] = skid
     j2 = np.zeros((R, K2), I32)
     j2[:, :K] = jw
-    a = np.clip(a_idx, 0, G - 1).astype(I32)
-    return np.asarray(jax_genome_map_gather(sk, a, j2,
+    return np.asarray(jax_genome_map_gather(sk, a_idx.astype(I32), j2,
                                             interpret=True))[:, :P]
 
 
@@ -241,7 +244,19 @@ def test_gather_schedule_matches_plain_and_pallas(name, kernel, kind, shape,
         plain = gather.genome_map_gather(torch.from_numpy(skid),
                                          torch.from_numpy(a),
                                          torch.from_numpy(jw)).numpy()
-        want = _jax_genome_map(skid, a, jw)
+        # the port's contract by hand: genome ids clamped into [0, G),
+        # skid values into [0, K)
+        want = jw[np.arange(R)[:, None],
+                  np.clip(skid[np.clip(a, 0, G - 1)], 0, K - 1)]
+        # the JAX kernel only where its input lies in its domain: the
+        # rows with a genome id in [0, G), the positions whose skid values
+        # all lie in [0, K) (the others replaced by 0 and not compared)
+        rows = (a >= 0) & (a < G)
+        cols = ((skid >= 0) & (skid < K)).all(axis=0)
+        assert rows.all() == cols.all() == (kind != "out_of_range")
+        jx = _jax_genome_map(np.where((skid >= 0) & (skid < K), skid, 0),
+                             a[rows], jw[rows])
+        np.testing.assert_array_equal(got[rows][:, cols], jx[:, cols])
         # padding positions read jw[:, 0]
         np.testing.assert_array_equal(got[:, P - P // 8:],
                                       np.repeat(jw[:, :1], P // 8, axis=1))
