@@ -958,9 +958,10 @@ def kernels(batch, slow_batch, ct_batch, cs_batch, c20_batch, bw, rate,
     at the default batch's shapes (the only path that gives the scatters P
     <= 65536); the windowed gather, the genome map gather and the 3-plane
     DP at the slow batch's; the padded DP at the many-contig slow batch's
-    and the -c 20 batch's, where the genome map gather also runs; then the microbenchmarks' contracts (K12) at
-    their scripts' shapes.  Bounds: bytes over the card's memory rate, DP
-    operations over its int32 lane rate (`rate`, from int32_rate())."""
+    and the -c 20 batch's, where the genome map gather also runs; then
+    the microbenchmarks' contracts (K12) at their scripts' shapes.
+    Bounds: bytes over the card's memory rate, DP operations over its
+    int32 lane rate (`rate`, from int32_rate())."""
     from skani_tpu_torch import synth
     from skani_tpu_torch.kernels import (dp_compact, dp_pallas,
                                          expand_pallas, gather)

@@ -246,7 +246,8 @@ __device__ __forceinline__ void serve_direct(
 // Direct launches: block x of row y serves span x of it.  K1 (MAP_IDX
 // false) reads table row rows[y] (clamped into [0, G)) at index row y;
 // K5 (MAP_IDX true) reads table row y at index row rows[y] (clamped into
-// [0, G), G then the index rows' count).  Blocks of NT threads.
+// [0, G), G then the index rows' count), its spans (P / nb words) started
+// on 128-byte lines.  Blocks of NT threads.
 template <int PER, int NT, bool MAP_IDX>
 __global__ void __launch_bounds__(NT)
 row_gather_kernel(const int32_t* __restrict__ table,
@@ -259,6 +260,10 @@ row_gather_kernel(const int32_t* __restrict__ table,
   const int32_t* irow = idx + (MAP_IDX ? m : r) * A;
   int lo, hi;
   block_span(A, blockIdx.x, gridDim.x, lo, hi);
+  if constexpr (MAP_IDX) {
+    lo &= ~31;
+    if (blockIdx.x + 1 < gridDim.x) hi &= ~31;
+  }
   const int w = lo + (int)threadIdx.x;
   int ix[PER];
   load_direct<PER>(irow, w, hi, ix);
@@ -454,7 +459,7 @@ __global__ void windowed_gather_kernel(
 }
 
 // K5, one thread a position (the form of the port's first K5 kernel),
-// for the launches where the row-affine grid would leave SMs idle.
+// for the launches where the row-affine one does not pay (genome_map).
 __global__ void genome_map_gather_kernel(const int32_t* __restrict__ skid,
                                          const int32_t* __restrict__ a_idx,
                                          const int32_t* __restrict__ jw,
@@ -475,7 +480,7 @@ __global__ void genome_map_gather_kernel(const int32_t* __restrict__ skid,
 // (else the copy's round trip outweighs what it saves).  Direct launches
 // use blocks of kDirectThreads.
 struct Card {
-  int sms, smem_sm, reserved, threads_sm;
+  int sms, smem_sm, reserved, threads_sm, l2;
 };
 
 const Card& card() {
@@ -490,6 +495,7 @@ const Card& card() {
                            cudaDevAttrReservedSharedMemoryPerBlock, dev);
     cudaDeviceGetAttribute(&d.threads_sm,
                            cudaDevAttrMaxThreadsPerMultiProcessor, dev);
+    cudaDeviceGetAttribute(&d.l2, cudaDevAttrL2CacheSize, dev);
     return d;
   }();
   return c;
@@ -539,18 +545,24 @@ int gather(const int32_t* table, const int32_t* idx, const int32_t* rows,
 // of those requests, not DRAM, bounds the gather.  The row-affine launch
 // (sms / R blocks of kRowThreads a row, the kernel asking for the largest
 // L1 share of the SM's 256 KB) gives each SM one jw row, so that a row of
-// up to ~200 KB (the contigs and joins batches') is served from L1 after
-// its first touch, as if staged, without the copy, and a wider one (slow)
-// hits L1 in proportion.  Where that grid would leave more than a tenth
-// of the SMs idle (R over the SM count, or sms % R large: R 29 leaves 16
-// of 132), one thread a position over the whole card measured faster
-// inside the batch (-c 20's R 29); it takes that launch.  skid rows are
-// read once a row; rows that share a genome find theirs in L2.
+// up to kRowSmemWords words (the contigs and joins batches') is served
+// from L1 after its first touch, as if staged, without the copy, and a
+// wider one (slow, -c 20) hits L1 in proportion.  It takes that launch
+// where the R jw rows take at most 3/5 of the L2 (else they thrash it:
+// 1.03-2.1x slower at -c 20's width and R 34-66) and where either the row
+// fits or the grid keeps nine tenths of the SMs busy (a wide row gains
+// too little from L1 to pay for idle SMs).  Elsewhere one thread a
+// position over the whole card, which reads one jw row at a time.  The
+// rule is fitted on scripts/gmap_launch_sweep.py (R 12-66 at the contigs,
+// slow and -c 20 widths).  skid rows are read once a row; rows that share
+// a genome find theirs in L2.
 int genome_map(const int32_t* skid, const int32_t* a_idx, const int32_t* jw,
                int32_t* out, int G, int R, int P, int K, cudaStream_t st) {
   const Card& c = card();
   const int nb = c.sms / R;
-  if (nb >= 1 && 10 * nb * R >= 9 * c.sms) {
+  const bool fits_l2 = 5 * 4 * (int64_t)R * K <= 3 * (int64_t)c.l2;
+  if (nb >= 1 && fits_l2
+      && (K <= kRowSmemWords || 10 * nb * R >= 9 * c.sms)) {
     static const cudaError_t set = cudaFuncSetAttribute(
         row_gather_kernel<kDirectPer, kRowThreads, true>,
         cudaFuncAttributePreferredSharedMemoryCarveout, 0);

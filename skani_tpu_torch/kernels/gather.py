@@ -34,11 +34,13 @@ where the row fits in a block's shared memory (ROW_SMEM_WORDS) and the
 shape makes a copy pay, from a copy that each block stages there unless
 its first 32 indices are nondecreasing.  genome_map_gather's launch gives
 each SM one jw row (sms / R blocks of 1024 threads a row), so that the
-SM's L1 holds as much of that row as fits, unless that grid would leave
-more than a tenth of the SMs idle; then one thread a position.  The scatters own their output:
-a block zeroes a tile of one row's V planes in shared memory, writes the
-payloads whose targets fall in it, and stores it once; the tiles give
-each SM one block (more where a row's V planes need more tiles to fit).
+SM's L1 holds as much of that row as fits, where the R jw rows take at
+most 3/5 of the L2 and either a row fits ROW_SMEM_WORDS or the grid keeps
+nine tenths of the SMs busy; elsewhere one thread a position.  The
+scatters own their output: a block zeroes a tile of one row's V planes in
+shared memory, writes the payloads whose targets fall in it, and stores
+it once; the tiles give each SM one block (more where a row's V planes
+need more tiles to fit).
 
 Dispatch rule: a CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises.  There is no fallback from one to the other.

@@ -254,7 +254,9 @@ def test_row_scatter_multi_kernel_refuses_four_payloads(dev):
 # (kind, G, R, P, K): the cases of the schedule test, then rows that fit a
 # block's shared memory (ROW_SMEM_WORDS: the contigs and joins batches'
 # kmer axes) and wider ones (the slow and -c 20 batches'), more rows than
-# SMs
+# SMs; then each branch of the launch rule: a narrow row with 42 SMs
+# idle (row-affine), a wide row in spans of P / 5 words (row-affine), jw
+# rows over 3/5 of the L2 (one thread a position)
 _GMAP = [
     ("unsorted", 5, 9, 4096, 256), ("all_equal", 4, 6, 4096, 384),
     ("out_of_range", 5, 7, 4096, 300), ("unsorted", 3, 12, 4099, 1001),
@@ -262,7 +264,10 @@ _GMAP = [
     ("all_equal", 16, 33, 40960, gather.ROW_SMEM_WORDS),
     ("unsorted", 16, 32, 167936, 157696),
     ("out_of_range", 16, 29, 253952, 235520),
-    ("unsorted", 7, 200, 1001, 5000)]
+    ("unsorted", 7, 200, 1001, 5000),
+    ("unsorted", 16, 45, 45056, 38912),
+    ("unsorted", 16, 24, 167936, 157696),
+    ("unsorted", 16, 34, 253952, 235520)]
 
 
 @pytest.mark.parametrize("kind,G,R,P,K", _GMAP)

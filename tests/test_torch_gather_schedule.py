@@ -21,20 +21,23 @@ The scatter emulation follows skt_row_scatter_multi:
 
 The K5 emulation follows skt_genome_map_gather: the row-affine launch,
 sms // R blocks of 1024 threads a row, each a balanced span of the row
-with 4 positions a thread in flight a round, where that grid keeps at
-least nine tenths of the SMs busy; else one thread a position in blocks
-of 256.  Index row a_idx[r] of skid (clamped into [0, G)), table row r
-of jw, skid values clamped into [0, K).
+started on a 32-word line, with 4 positions a thread in flight a round,
+where R <= sms, the R jw rows take at most 3/5 of the L2 and either a row
+fits ROW_SMEM_WORDS or the grid keeps nine tenths of the SMs busy; else
+one thread a position in blocks of 256.  Index row a_idx[r] of skid
+(clamped into [0, G)), table row r of jw, skid values clamped into
+[0, K).
 
-The emulated card's SM count and shared memory are parameters, so the
-tile and span rules are exercised at small shapes.  Where a shape lies
-outside the TPU kernel's domain (K not a multiple of 128, P not a multiple
-of its chunk) the JAX kernel runs on the input padded: padding targets
-and positions that drop or are sliced off.  Genome ids and skid values
-out of range lie outside the JAX kernel's domain: there the emulation and
-the plain version are held against the port's contract written out by
-hand (ids and values clamped), and against the JAX kernel only on the
-rows and positions inside its domain.  Tolerance: exact (int32 words).
+The emulated card's SM count, shared memory and L2 are parameters, so
+the tile, span and launch rules are exercised at small shapes.  Where a
+shape lies outside the TPU kernel's domain (K not a multiple of 128, P
+not a multiple of its chunk) the JAX kernel runs on the input padded:
+padding targets and positions that drop or are sliced off.  Genome ids
+and skid values out of range lie outside the JAX kernel's domain: there
+the emulation and the plain version are held against the port's
+contract written out by hand (ids and values clamped), and against the
+JAX kernel only on the rows and positions inside its domain.
+Tolerance: exact (int32 words).
 """
 import numpy as np
 import pytest
@@ -49,7 +52,9 @@ from torch_gather_cases import gmap_inputs, scatter_inputs
 torch.set_num_threads(1)
 
 H100_SMS = 132
+H100_L2 = 50 << 20       # L2 bytes
 SMEM_BYTES = 232448      # a block's dynamic shared memory (227 KB)
+ROW_SMEM_WORDS = gather.ROW_SMEM_WORDS
 UNROLL = 4               # units a thread in flight, scatter and K5
 ROW_THREADS = 1024       # a block of K5's launch
 I32 = np.int32
@@ -112,25 +117,33 @@ def emulate_scatter(idx, vals, K, sms=H100_SMS, smem_bytes=SMEM_BYTES):
     return out
 
 
-def genome_map_launch(R, sms=H100_SMS):
-    """Blocks a row of the row-affine launch, or 0 where that grid would
-    leave more than a tenth of the SMs idle and the launch takes one
-    thread a position, as csrc/gather.cu genome_map() picks."""
+def genome_map_launch(R, K, sms=H100_SMS, l2=H100_L2,
+                      row_words=ROW_SMEM_WORDS):
+    """Blocks a row of the row-affine launch, or 0 where the launch takes
+    one thread a position, as csrc/gather.cu genome_map() picks: the
+    row-affine launch where R <= sms, the R jw rows take at most 3/5 of
+    the L2, and either a row fits row_words or the grid keeps nine tenths
+    of the SMs busy."""
     nb = sms // R
-    return nb if nb >= 1 and 10 * nb * R >= 9 * sms else 0
+    if nb < 1 or 5 * 4 * R * K > 3 * l2:
+        return 0
+    return nb if K <= row_words or 10 * nb * R >= 9 * sms else 0
 
 
-def emulate_genome_map(skid, a_idx, jw, sms=H100_SMS):
+def emulate_genome_map(skid, a_idx, jw, sms=H100_SMS, l2=H100_L2,
+                       row_words=ROW_SMEM_WORDS):
     G, P = skid.shape
     R, K = jw.shape
-    nb = genome_map_launch(R, sms)
+    nb = genome_map_launch(R, K, sms, l2, row_words)
     out = np.full((R, P), 0x5A5A5A5A, I32)
     stores = np.zeros((R, P), np.int64)
     for r in range(R):
         irow = skid[min(max(int(a_idx[r]), 0), G - 1)]
-        if nb:                  # row-affine: nb balanced spans of the row
-            spans = [(P * b // nb, P * (b + 1) // nb) for b in range(nb)]
-            ws = [_rounds(lo, hi, ROW_THREADS, UNROLL) for lo, hi in spans]
+        if nb:                  # row-affine: nb spans of the row, each
+            # started on a 32-word line (the last ends at P)
+            ends = [P * b // nb & ~31 for b in range(nb)] + [P]
+            ws = [_rounds(lo, hi, ROW_THREADS, UNROLL)
+                  for lo, hi in zip(ends, ends[1:])]
         else:                   # one thread a position, blocks of 256
             ws = [np.arange(b, min(b + 256, P)) for b in range(0, P, 256)]
         for w in ws:
@@ -174,7 +187,9 @@ def _jax_genome_map(skid, a_idx, jw):
                                             interpret=True))[:, :P]
 
 
-# (name, kernel, kind, shape, emulated card: sms, shared memory bytes)
+# (name, kernel, kind, shape, emulated card: for the scatter sms and
+# shared memory bytes, for the genome map sms, L2 bytes and the widest
+# row that counts as fitting)
 _CASES = [
     ("scatter_ascending_v2", "scatter", "ascending", (4, 2, 4096, 4480),
      (H100_SMS, SMEM_BYTES)),
@@ -199,16 +214,26 @@ _CASES = [
      (8, SMEM_BYTES)),
     ("scatter_fit_rule_v3", "scatter", "ascending", (3, 3, 4096, 3000),
      (4, 4 * 3 * 400)),
+    # row-affine: spans of P / nb words rounded to 32-word lines
     ("gmap_unsorted", "gmap", "unsorted", (5, 9, 4096, 256),
-     (H100_SMS, SMEM_BYTES)),
+     (H100_SMS, H100_L2, ROW_SMEM_WORDS)),
     ("gmap_all_equal", "gmap", "all_equal", (4, 6, 4096, 384),
-     (16, SMEM_BYTES)),
+     (16, H100_L2, ROW_SMEM_WORDS)),
     ("gmap_out_of_range", "gmap", "out_of_range", (5, 7, 4096, 300),
-     (H100_SMS, SMEM_BYTES)),
+     (H100_SMS, H100_L2, ROW_SMEM_WORDS)),
     # more rows than SMs (one thread a position); P % 4 != 0,
     # K % 128 != 0
     ("gmap_rows_gt_sms", "gmap", "unsorted", (3, 12, 4099, 1001),
-     (8, SMEM_BYTES)),
+     (8, H100_L2, ROW_SMEM_WORDS)),
+    # a wide row: one thread a position where 2 of 16 SMs idle, the
+    # row-affine launch where none do (spans of 2049.5 words)
+    ("gmap_wide_row_idle_sms", "gmap", "unsorted", (4, 7, 4099, 1001),
+     (16, H100_L2, 256)),
+    ("gmap_wide_row_busy_sms", "gmap", "unsorted", (4, 8, 4099, 1001),
+     (16, H100_L2, 256)),
+    # jw rows over 3/5 of the L2: one thread a position
+    ("gmap_rows_over_l2", "gmap", "all_equal", (3, 6, 4096, 384),
+     (H100_SMS, 8192, ROW_SMEM_WORDS)),
 ]
 
 
@@ -217,8 +242,8 @@ _CASES = [
 def test_gather_schedule_matches_plain_and_pallas(name, kernel, kind, shape,
                                                   card):
     rng = np.random.default_rng(sum(map(ord, name)))
-    sms, smem = card
     if kernel == "scatter":
+        sms, smem = card
         R, V, P, K = shape
         idx, vals = scatter_inputs(rng, kind, R, V, P, K)
         got = emulate_scatter(idx, vals, K, sms, smem)
@@ -240,7 +265,13 @@ def test_gather_schedule_matches_plain_and_pallas(name, kernel, kind, shape,
     else:
         G, R, P, K = shape
         skid, a, jw = gmap_inputs(rng, kind, G, R, P, K)
-        got = emulate_genome_map(skid, a, jw, sms)
+        nb = genome_map_launch(R, K, *card)
+        assert (nb == 0) == (name in ("gmap_rows_gt_sms",
+                                      "gmap_wide_row_idle_sms",
+                                      "gmap_rows_over_l2"))
+        if name in ("gmap_unsorted", "gmap_wide_row_busy_sms"):
+            assert P // nb % 32                 # spans rounded to lines
+        got = emulate_genome_map(skid, a, jw, *card)
         plain = gather.genome_map_gather(torch.from_numpy(skid),
                                          torch.from_numpy(a),
                                          torch.from_numpy(jw)).numpy()
@@ -265,12 +296,20 @@ def test_gather_schedule_matches_plain_and_pallas(name, kernel, kind, shape,
 
 
 def test_genome_map_launch_at_the_main_path_shapes():
-    """The slow, contigs and joins batches (R 32, 33) take the row-affine
-    launch; -c 20's R 29 (116 of 132 SMs) and more rows than SMs take
-    one thread a position."""
-    assert genome_map_launch(32) == 4 and genome_map_launch(33) == 4
-    assert genome_map_launch(29) == 0 and genome_map_launch(200) == 0
-    assert genome_map_launch(1) == 132 and genome_map_launch(9) == 14
+    """The slow (R 32, K 157696) and contigs (R 32, K 38912) batches take
+    the row-affine launch; -c 20's R 29 (K 235520, 116 of 132 SMs busy)
+    and more rows than SMs take one thread a position; a narrow row takes
+    the row-affine launch with idle SMs, and rows over 30 MB never do."""
+    assert genome_map_launch(32, 157696) == 4
+    assert genome_map_launch(32, 38912) == 4
+    assert genome_map_launch(29, 235520) == 0
+    assert genome_map_launch(33, 235520) == 4     # 29.6 MB
+    assert genome_map_launch(34, 235520) == 0     # 30.5 MB
+    assert genome_map_launch(45, 38912) == 2      # 90 of 132 SMs
+    assert genome_map_launch(45, 157696) == 0
+    assert genome_map_launch(62, 157696) == 0     # 37 MB
+    assert genome_map_launch(200, 5000) == 0
+    assert genome_map_launch(1, 5000) == 132
 
 
 def test_scatter_tile_rule_at_the_main_path_shapes():
