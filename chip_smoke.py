@@ -157,6 +157,23 @@ line):
              `multihost_search`); each wall beside the single-process
              wall of the same run.  A rank that fails or runs past its
              timeout fails the smoke.
+3i. bench  — bench_torch.py's four tiers (main, distant, search, cli) on
+             the card at a cut depth (16, 12, 128 and 8 genomes; printed
+             as `depth`), under the defaults (host steal-workers, the
+             small-batch route): its JSON object in the phase line;
+             fails unless mismatches is 0, device_only is above 0 and
+             every tier ran (counters under `bench`; the cli tier's
+             subprocesses count in their own processes).
+3j. scale  — the scale demos of skani_tpu_torch/tools on the device-only
+             route: mag_scale_demo's 2 x 65 Mbp single-contig pair (the
+             unpacked `sorted` generator, P >= 2^19: the split gathers,
+             bucket-scaled caps; both orientations cold and warm, each
+             equal to native on all five fields), search_scale_demo on a
+             DB of 256 genomes of 150 kb (cold, warm and native rows
+             equal; bytes uploaded, pages, peak RSS) and
+             triangle_scale_demo on 64 genomes of 40 kb (TSV
+             byte-identical to native); counters under `scale`, each
+             demo's own in its part of the line.
 4. phase_a — the first device batch of each of those runs on the GPU; the
              default one also on the CPU (plain kernel versions): packed
              outputs must be bit-identical.
@@ -1915,6 +1932,103 @@ def multihost_phase(tmp, sets):
     return by_path, info
 
 
+# the bench phase's depth: bench_torch.py's tiers cut so that the smoke
+# keeps inside its limit (its defaults: 32, 24, 512 and 14 genomes)
+_BENCH_DEPTH = {"BENCH_GENOMES": "16", "BENCH_DISTANT_GENOMES": "12",
+                "BENCH_SEARCH_GENOMES": "128", "BENCH_CLI_GENOMES": "8"}
+# the kernels the bench's main tier must launch (the default preset's
+# path) and its search tier's (resident pages with reserved rows: the
+# merge join)
+_BENCH_MUST = _RUNS["default"]["must"] + ("genome_map_gather",)
+
+
+@phase("bench")
+def bench_phase():
+    """bench_torch.py's tiers on the card at _BENCH_DEPTH, under the
+    defaults (host steal-workers, the small-batch route), as a user runs
+    it: the phase line holds its JSON object.  Fails unless mismatches is
+    0, device_only is above 0 and every tier ran."""
+    import bench_torch
+    from skani_tpu_torch.tools.common import environ
+    _set_route({})
+    try:
+        with environ(BENCH_TIERS=None, **_BENCH_DEPTH):
+            reset_launches()
+            out = bench_torch.run("cuda")
+            launches = read_launches()
+    finally:
+        device_route()
+        bench_torch._ENGINE.clear()
+        torch.cuda.empty_cache()
+    failed = [k for k, v in [("main", out["main"])]
+              + list(out["tiers"].items()) if "error" in v]
+    missing = [k for k in ("distant_82_95", "search_decoy", "cli_triangle")
+               if k not in out["tiers"]]
+    if failed or missing or out["mismatches"] != 0 \
+            or not out["device_only"] > 0:
+        raise RuntimeError(f"bench: mismatches {out['mismatches']}, "
+                           f"device_only {out['device_only']}, tiers "
+                           f"failed {failed}, missing {missing}")
+    never = [k for k in _BENCH_MUST if launches[k] <= 0]
+    if never:
+        raise RuntimeError(f"bench: kernels of the path never launched: "
+                           f"{never} ({launches})")
+    return launches, {"depth": _BENCH_DEPTH, "bench": out,
+                      "launches": launches}
+
+
+# the scale phase: the MAG pair at its full width (2 x 65 Mbp, past 2^24
+# positions and 2^19 seed rows), a search DB of 256 genomes of 150 kb and
+# a streamed triangle of 64 genomes of 40 kb
+_SCALE = {"mag_len": 65_000_000, "mag_div": 0.02, "db_genomes": 256,
+          "db_genome_len": 150_000, "tri_genomes": 64, "tri_bp": 40_000}
+
+
+def _log(*a):
+    print(*a, file=sys.stderr, flush=True)
+
+
+@phase("scale")
+def scale_phase(tmp):
+    """The three scale demos (skani_tpu_torch/tools) on the card at
+    _SCALE, on the device-only route: the MAG pair (the unpacked `sorted`
+    generator, P >= 2^19: the split gathers; both orientations equal to
+    native), search_scale_demo (cold, warm and native rows equal) and
+    triangle_scale_demo (TSV byte-identical to native).  Launches of all
+    three are the `scale` path's; each demo's line holds its own."""
+    from skani_tpu_torch.tools import (mag_scale_demo, search_scale_demo,
+                                       triangle_scale_demo)
+    runs = {
+        "mag": lambda: mag_scale_demo.run(
+            _SCALE["mag_len"], _SCALE["mag_div"], "cuda", log=_log),
+        "search": lambda: search_scale_demo.run(
+            os.path.join(tmp, "scale_search"), _SCALE["db_genomes"],
+            _SCALE["db_genome_len"], "cuda", log=_log),
+        "triangle": lambda: triangle_scale_demo.run(
+            _SCALE["tri_genomes"], _SCALE["tri_bp"], "cuda",
+            os.path.join(tmp, "scale_triangle"), log=_log)}
+    info, total = {"depth": _SCALE}, {}
+    for name, fn in runs.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        launches = read_launches()
+        torch.cuda.empty_cache()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if out["mismatches"]:
+            raise RuntimeError(f"scale {name}: {out['mismatches']} "
+                               f"mismatches")
+        info[name] = dict(out, seconds=time.perf_counter() - t0,
+                          launches={k: v for k, v in launches.items() if v})
+    mag = info["mag"]
+    if mag["gen_mode"] != "sorted" or mag["P"] < (1 << 19) \
+            or not mag["launches"]:
+        raise RuntimeError(f"scale mag: mode {mag['gen_mode']}, P "
+                           f"{mag['P']}, launches {mag['launches']}")
+    return total, info
+
+
 def _overflow_causes(batch):
     """Which cap the batch's overflowing pairs hit, from its own phase_a
     readback (per row: chunks, anchors, overflow flag): anchors past A and
@@ -3457,6 +3571,8 @@ def main() -> int:
             tmp, sets, a.seed, a.length, bw, rate, sass, name)
         by_path.update(fleet(tmp, sets))
         by_path.update(multihost_phase(tmp, sets))
+        by_path["bench"] = bench_phase()
+        by_path["scale"] = scale_phase(tmp)
         batches = {}
         for preset in _RUNS:
             key = "phase_a" if preset == "default" else f"phase_a_{preset}"

@@ -44,6 +44,10 @@ import numpy as np
 import torch
 
 KMER_SENTINEL = np.uint32(0xFFFFFFFF)
+# host->device upload accounting (bytes): DeviceDb builds + row updates.
+# The search scale demo reads it to show that per-query traffic is
+# O(query) once the database is resident
+UPLOAD_BYTES = [0]
 CTG_SENTINEL = np.int32(0x3FFFFFFF)
 PACK_POS_BITS = 24
 # < 64 contigs so the packed-DP layout rc << 25 | rp keeps cross-contig
@@ -287,11 +291,13 @@ class DeviceDb:
         n_pos = arrays["n_pos"] if "n_pos" in arrays \
             else arrays["counts"].sum(axis=1)
         self.max_n_pos = int(n_pos.max()) if len(n_pos) else 16
+        UPLOAD_BYTES[0] += sum(v.nbytes for v in arrays.values())
         self.arrays = {k: torch.from_numpy(np.require(v, requirements="CW"))
                        .to(self.device) for k, v in arrays.items()}
 
     def to(self, device) -> "DeviceDb":
-        """A copy of this database on `device`."""
+        """A copy of this database on `device` (device to device: not
+        counted in UPLOAD_BYTES)."""
         db = DeviceDb.__new__(DeviceDb)
         db.__dict__.update(self.__dict__)
         db.device = torch.device(device)
@@ -320,6 +326,7 @@ class DeviceDb:
             # torch.uint32 has no index_copy_: write through an int32 view
             # of the same storage
             new = torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+            UPLOAD_BYTES[0] += v.nbytes
             arr.view(torch.int32).index_copy_(0, idx,
                                               new.view(torch.int32))
         self.max_n_pos = max([self.max_n_pos]

@@ -970,3 +970,48 @@ def test_fleet_on_one_card_twice_matches_native(dev, small_set):
                   for i, j in prs]
         _same_results(got, native)
     assert gather.LAUNCHES["row_gather"] > n0
+
+
+# chip_smoke.py's bench depth (its defaults: 32, 24, 512 and 14 genomes)
+_BENCH_DEPTH = {"BENCH_GENOMES": "16", "BENCH_DISTANT_GENOMES": "12",
+                "BENCH_SEARCH_GENOMES": "128", "BENCH_CLI_GENOMES": "8"}
+
+
+def test_bench_torch_on_the_card(dev, monkeypatch, capsys):
+    """bench_torch.py's four tiers on the card at the smoke's depth: one
+    JSON line, every tier run, no mismatch, pairs on the device in the
+    main tier and in the CLI tier's subprocess."""
+    import json
+
+    import bench_torch
+    for k, v in _BENCH_DEPTH.items():
+        monkeypatch.setenv(k, v)
+    for k in ("BENCH_TIERS", "BENCH_GENOME_LEN", "SKANI_TPU_EXECUTOR",
+              "SKANI_TPU_HOST_WORKERS", "SKANI_TPU_MIN_PAIRS"):
+        monkeypatch.delenv(k, raising=False)
+    try:
+        rc = bench_torch.main([])
+    finally:
+        bench_torch._ENGINE.clear()
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and out["mismatches"] == 0, out
+    assert out["device_only"] > 0 and "error" not in out["main"]
+    assert set(out["tiers"]) == {"distant_82_95", "search_decoy",
+                                 "cli_triangle"}
+    assert not any("error" in t for t in out["tiers"].values())
+    assert out["tiers"]["cli_triangle"]["pairs_device"] > 0
+    assert out["device"] != "cpu"
+
+
+def test_mag_scale_demo_on_the_card(dev):
+    """The MAG demo at 17 Mbp (past 2^24 positions: the unpacked `sorted`
+    generator) through a seed-position table past 2^19 rows (the split
+    gathers), both orientations equal to native."""
+    from skani_tpu_torch.tools import mag_scale_demo
+    n0 = gather.LAUNCHES["row_gather"]
+    out = mag_scale_demo.run(17_000_000, 0.02, dev,
+                             min_p=(1 << 19) + 4096, log=lambda *_: None)
+    assert out["mismatches"] == 0
+    assert out["gen_mode"] == "sorted" and out["P"] >= 1 << 19
+    assert out["stages"]["warm"]["pairs_overflow"] == 0
+    assert gather.LAUNCHES["row_gather"] > n0
