@@ -25,6 +25,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from . import native, stats
 from .params import SketchParams
 from .sketch import Sketch
 
@@ -418,15 +419,86 @@ def sketches_from_sketch(paths: List[str]):
 
 
 def read_markers_bin(path: str) -> Tuple[SketchParams, List[Sketch]]:
-    """reference: src/file_io.rs:720-729 — bincode (SketchParams, Vec<Sketch>)."""
-    with open(path, "rb") as f:
-        buf = f.read()
+    """reference: src/file_io.rs:720-729 — bincode (SketchParams, Vec<Sketch>).
+
+    The file is read once into one 8-byte-aligned buffer.  The native walk
+    (csrc/markers_bin.cpp) parses what it accepts, counted as
+    `markers_native`; anything else (seeds, multi-position storage,
+    contig lengths, a name holding a newline or not UTF-8, a bound failed, no
+    library) goes to the Python walker on the same bytes, counted as
+    `markers_fallback`, which gives today's sketches or CorruptDbError."""
+    buf = _read_aligned(path)
     with _corrupt_guard(path):
-        r = _Reader(buf)
+        r = _Reader(memoryview(buf))
         params = _read_sketch_params(r)
         n = r.vec_len(8)
-        sketches = [_read_sketch(r) for _ in range(n)]
+        sketches = _markers_native(buf, r.off, n)
+        if sketches is None:
+            stats.add("markers_fallback")
+            sketches = [_read_sketch(r) for _ in range(n)]
+        else:
+            stats.add("markers_native")
     return params, sketches
+
+
+def _read_aligned(path: str) -> np.ndarray:
+    """The whole file as uint8 over an 8-byte-aligned allocation (read,
+    not mapped: a file rewritten under a live mapping faults)."""
+    with open(path, "rb") as f:
+        size = os.fstat(f.fileno()).st_size
+        buf = np.empty((size + 7) // 8, dtype=np.uint64).view(np.uint8)
+        got = f.readinto(memoryview(buf[:size]))
+    return buf[:got]
+
+
+# the empty arrays every markers-only sketch shares (zero-length: nothing
+# can be written into them)
+_NO_U32 = np.zeros(0, dtype=np.uint32)
+_NO_BOOL = np.zeros(0, dtype=bool)
+_SKETCH_MIN_BYTES = 91   # a sketch's fixed fields: no names, no markers
+_ROW_COLS = 10           # Col in csrc/markers_bin.cpp
+
+
+def _markers_native(buf: np.ndarray, off: int,
+                    n: int) -> Optional[List[Sketch]]:
+    """The n markers-only sketches at buf[off:] by the native walk, or None
+    where it does not accept them (buf is then untouched).  Accepted, every
+    marker_seeds is a view of one sorted run of the uint64 column that the
+    walk compacts to the front of buf."""
+    left = len(buf) - off
+    if n > left // _SKETCH_MIN_BYTES:
+        return None
+    lib = native.markers_lib()
+    if lib is None:
+        return None
+    rows = np.empty((n, _ROW_COLS), dtype=np.uint64)
+    blob = np.empty(left, dtype=np.uint8)
+    out = np.zeros(2, dtype=np.int64)
+    if lib.skt_markers_scan(buf, len(buf), off, n, rows, blob, len(blob),
+                            out):
+        return None
+    try:
+        names = blob[:out[0]].tobytes().decode("utf-8").split("\n")
+    except UnicodeDecodeError:
+        return None
+    lib.skt_markers_compact(buf, n, rows)
+    column = buf[:8 * int(out[1])].view(np.uint64)
+    sketches = []
+    at = 0
+    i = 0
+    for (n_ctg, total, n_mk, marker_c, c, k, order, individual,
+         amino_acid, _src) in rows.tolist():
+        sketches.append(Sketch(
+            file_name=names[i], contigs=names[i + 1:i + 1 + n_ctg],
+            contig_lengths=_NO_U32, total_sequence_length=total,
+            seed_kmers=_NO_U32, seed_starts=np.zeros(1, dtype=np.int64),
+            seed_pos=_NO_U32, seed_contig=_NO_U32, seed_canon=_NO_BOOL,
+            marker_seeds=column[at:at + n_mk], marker_c=marker_c, c=c, k=k,
+            contig_order=order, individual_contig=bool(individual),
+            amino_acid=bool(amino_acid)))
+        at += n_mk
+        i += 1 + n_ctg
+    return sketches
 
 
 def write_markers_bin(path: str, params: SketchParams,

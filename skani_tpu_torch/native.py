@@ -1,11 +1,13 @@
-"""ctypes bindings for the native core (native/skani_core.cpp).
+"""ctypes bindings for the native core (native/skani_core.cpp) and the
+port's own markers.bin walker (csrc/markers_bin.cpp).
 
-Builds the shared source native/skani_core.cpp on first use (g++ -O3) into
-skani_tpu_torch/_native/ (never into another package's directory); falls
-back cleanly if the toolchain is unavailable (`available()` -> False and
-the NumPy reference path is used).  The build writes a process-private
-temporary file and renames it into place, so concurrent first uses (test
-workers, the CLI and a smoke run) never load a half-written library.
+Builds each source on first use (g++ -O3) into skani_tpu_torch/_native/
+(never into another package's directory); falls back cleanly if the
+toolchain is unavailable (`available()` -> False and the NumPy reference
+path is used; `markers_lib()` -> None and db.py's Python walker reads
+markers.bin).  The build writes a process-private temporary file and
+renames it into place, so concurrent first uses (test workers, the CLI and
+a smoke run) never load a half-written library.
 """
 from __future__ import annotations
 
@@ -21,9 +23,13 @@ _HERE = os.path.dirname(__file__)
 _SRC = os.path.join(_HERE, "..", "native", "skani_core.cpp")
 _OUT_DIR = os.path.join(_HERE, "_native")
 _SO = os.path.join(_OUT_DIR, "libskani_core.so")
+_MARKERS_SRC = os.path.join(_HERE, "csrc", "markers_bin.cpp")
+_MARKERS_SO = os.path.join(_OUT_DIR, "libskt_markers.so")
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_markers_lib: Optional[ctypes.CDLL] = None
+_markers_tried = False
 _lib_lock = threading.Lock()
 
 
@@ -57,25 +63,25 @@ class _IvOutputView(ctypes.Structure):
     ]
 
 
-def _build() -> Optional[str]:
-    src = os.path.abspath(_SRC)
+def _build(src: str, so: str) -> Optional[str]:
+    src = os.path.abspath(src)
     if not os.path.exists(src):
         return None
-    if (os.path.exists(_SO)
-            and os.path.getmtime(_SO) >= os.path.getmtime(src)):
-        return _SO
+    if (os.path.exists(so)
+            and os.path.getmtime(so) >= os.path.getmtime(src)):
+        return so
     os.makedirs(_OUT_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
+    tmp = f"{so}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
            src, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
-        os.replace(tmp, _SO)
+        os.replace(tmp, so)
     except (OSError, subprocess.CalledProcessError):
         if os.path.exists(tmp):
             os.remove(tmp)
         return None
-    return _SO
+    return so
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -88,7 +94,7 @@ def _get_lib_locked() -> Optional[ctypes.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    so = _build()
+    so = _build(_SRC, _SO)
     if so is None:
         return None
     lib = ctypes.CDLL(so)
@@ -137,6 +143,31 @@ def _get_lib_locked() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return get_lib() is not None
+
+
+def markers_lib() -> Optional[ctypes.CDLL]:
+    """The markers.bin walker (csrc/markers_bin.cpp; db.read_markers_bin),
+    or None where it cannot be built."""
+    global _markers_lib, _markers_tried
+    with _lib_lock:
+        if _markers_lib is not None or _markers_tried:
+            return _markers_lib
+        _markers_tried = True
+        so = _build(_MARKERS_SRC, _MARKERS_SO)
+        if so is None:
+            return None
+        lib = ctypes.CDLL(so)
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        lib.skt_markers_scan.restype = ctypes.c_int64
+        lib.skt_markers_scan.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, u64p, u8p,
+            ctypes.c_int64, i64p]
+        lib.skt_markers_compact.restype = None
+        lib.skt_markers_compact.argtypes = [u8p, ctypes.c_int64, u64p]
+        _markers_lib = lib
+        return lib
 
 
 def fmh_seeds_native(seq: np.ndarray, params):

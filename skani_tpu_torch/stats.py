@@ -184,6 +184,9 @@ def driver_report(driver: str, wall_s: float,
              f" host={int(g('pairs_host'))}"
              f" mirrored={int(g('pairs_mirrored'))}"
              f" overflow={int(g('pairs_overflow'))}]")
+    markers = (f"markers[native={int(g('markers_native'))}"
+               f" fallback={int(g('markers_fallback'))}]"
+               if g("markers_native") or g("markers_fallback") else "")
     dev = (f"batches={int(g('device_batches'))}"
            f" readback={g('readback_s'):.2f}s"
            f" finalize={g('finalize_s'):.2f}s"
@@ -192,4 +195,4 @@ def driver_report(driver: str, wall_s: float,
     if root is not None:
         dev += f" uncovered={root.self_seconds():.2f}s"
     return " ".join(p for p in (f"perf[{driver}]: wall={wall_s:.2f}s",
-                                phases, split, pairs, dev) if p)
+                                phases, split, markers, pairs, dev) if p)

@@ -20,7 +20,7 @@ import pytest
 from skani_tpu import db as jax_db
 from skani_tpu import params as jax_params
 from skani_tpu import sketch as jax_sketch
-from skani_tpu_torch import db, synth
+from skani_tpu_torch import db, stats, synth
 from skani_tpu_torch.params import SketchParams
 from skani_tpu_torch.sketch import Sketch, sketch_file, sketch_file_individual
 
@@ -287,3 +287,177 @@ def test_garbage_sketch_file(genomes, tmp_path):
     # a fasta is not a sketch either
     with pytest.raises(db.CorruptDbError):
         db.read_sketch_file(paths[0])
+
+
+# --- markers.bin: the native walk (csrc/markers_bin.cpp) against the Python
+# walker and the JAX package ---
+
+def _python_walk(path):
+    """The Python walker alone, as read_markers_bin ran before the native
+    walk: (params, sketches), or CorruptDbError with its message."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    with db._corrupt_guard(path):
+        r = db._Reader(buf)
+        params = db._read_sketch_params(r)
+        n = r.vec_len(8)
+        return params, [db._read_sketch(r) for _ in range(n)]
+
+
+def _outcome(read, path):
+    try:
+        return read(path)
+    except db.CorruptDbError as e:
+        return str(e)
+
+
+def _read_counted(path):
+    """read_markers_bin's result and which walk read the file."""
+    base = stats.snapshot()
+    params, sks = db.read_markers_bin(path)
+    now = stats.snapshot()
+    counts = {k: now.get(k, 0.0) - base.get(k, 0.0)
+              for k in ("markers_native", "markers_fallback")}
+    assert sorted(counts.values()) == [0.0, 1.0], counts
+    walk = "native" if counts["markers_native"] else "fallback"
+    n_native = int(counts["markers_native"])
+    assert (f"markers[native={n_native} fallback={1 - n_native}]"
+            in stats.driver_report("search", 1.0, base))
+    return params, sks, walk
+
+
+def _assert_same_read(a, b):
+    (pa, sa), (pb, sb) = a, b
+    _assert_same_sketch(pa, pb)     # any dataclass, field for field
+    assert len(sa) == len(sb)
+    for x, y in zip(sa, sb):
+        _assert_same_sketch(x, y)
+
+
+def _handmade(path, sketches, params=None, markers_only=True):
+    """A markers.bin written through db._Writer, the markers as given."""
+    w = db._Writer()
+    db._write_sketch_params(w, params or SketchParams())
+    w.u64(len(sketches))
+    for sk in sketches:
+        db._write_sketch(w, sk, markers_only=markers_only)
+    with open(path, "wb") as f:
+        f.write(w.getvalue())
+
+
+def _stub(name, markers, contigs=("c1",), **kw):
+    return Sketch(file_name=name, contigs=list(contigs),
+                  total_sequence_length=12345,
+                  marker_seeds=np.asarray(markers, dtype=np.uint64),
+                  marker_c=1000, c=125, k=15, contig_order=3, **kw)
+
+
+def _write_case(case, genomes, path):
+    """Writes case `case`; returns the walk that must read it."""
+    rng = np.random.default_rng(11)
+    if case in ("port", "jax", "no_library"):
+        _d, paths = genomes
+        sp, ours, jp, theirs = _sketches(paths, True)
+        if case == "jax":
+            jax_db.write_markers_bin(path, jp,
+                                     [s.get_markers_only() for s in theirs])
+        else:
+            db.write_markers_bin(path, sp,
+                                 [s.get_markers_only() for s in ours])
+        return "fallback" if case == "no_library" else "native"
+    if case == "unsorted_duplicates":
+        big = rng.integers(0, 2**64 - 1, 5000, dtype=np.uint64)
+        _handmade(path, [
+            _stub("a.fa", [9, 3, 3, 2**64 - 1, 0, 3]),
+            _stub("b.fa", np.concatenate([big, big[:700]])),
+            _stub("c.fa", np.sort(big))])
+        return "native"
+    if case == "non_ascii_name":
+        _handmade(path, [_stub("Escherichia coli Ü 大肠杆菌.fa", [1, 2],
+                               contigs=["ctg ä", "κ 1"]),
+                         _stub("b.fa", [3])])
+        return "native"
+    if case == "no_contigs":
+        _handmade(path, [_stub("a.fa", [4, 5], contigs=()),
+                         _stub("b.fa", [6], individual_contig=True,
+                               amino_acid=True)])
+        return "native"
+    if case == "zero_sketches":
+        _handmade(path, [])
+        return "native"
+    if case == "no_markers":
+        _handmade(path, [_stub("a.fa", [])])
+        return "native"
+    if case == "newline_name":
+        _handmade(path, [_stub("a.fa", [1]),
+                         _stub("b.fa", [2], contigs=["x\ny", "z"])])
+        return "fallback"
+    if case == "seeds_set":
+        _d, paths = genomes
+        sp, ours, _jp, _t = _sketches(paths[:2], False)
+        _handmade(path, ours, sp, markers_only=False)
+        return "fallback"
+    if case == "contig_lengths":
+        _handmade(path, [_stub("a.fa", [7, 1], contigs=["c1", "c2"],
+                               contig_lengths=np.array([5, 9], np.uint32))],
+                  markers_only=False)
+        return "fallback"
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "port", "jax", "unsorted_duplicates", "non_ascii_name", "no_contigs",
+    "zero_sketches", "no_markers", "newline_name", "seeds_set",
+    "contig_lengths", "no_library"])
+def test_markers_native_matches_python_walker(genomes, tmp_path,
+                                              monkeypatch, case):
+    """read_markers_bin equals the Python walker and the JAX package's
+    reader field for field, and the input decides the walk."""
+    path = str(tmp_path / "markers.bin")
+    want_walk = _write_case(case, genomes, path)
+    if case == "no_library":
+        monkeypatch.setattr(db.native, "markers_lib", lambda: None)
+    params, sks, walk = _read_counted(path)
+    assert walk == want_walk
+    _assert_same_read((params, sks), _python_walk(path))
+    _assert_same_read((params, sks), jax_db.read_markers_bin(path))
+    for sk in sks:
+        m = sk.marker_seeds
+        assert m.dtype == np.uint64 and m.flags.aligned
+        assert np.all(m[1:] >= m[:-1])
+
+
+@pytest.mark.parametrize("mutation", ["truncate", "bitflip"])
+def test_markers_native_error_parity(small_db, tmp_path, mutation):
+    """Every truncation (at a stride) and 300 seeded single-bit flips of a
+    markers.bin: both walks give equal sketches, or both raise
+    CorruptDbError with the same message."""
+    with open(os.path.join(small_db, "markers.bin"), "rb") as f:
+        original = f.read()
+    path = str(tmp_path / "markers.bin")
+    if mutation == "truncate":
+        stride = max(1, len(original) // 400)
+        variants = [original[:n] for n in range(0, len(original), stride)]
+    else:
+        rng = np.random.default_rng(20)
+        variants = []
+        for _ in range(300):
+            data = bytearray(original)
+            bit = int(rng.integers(len(data) * 8))
+            data[bit // 8] ^= 1 << (bit % 8)
+            variants.append(bytes(data))
+    n_errors = n_equal = 0
+    for data in variants:
+        with open(path, "wb") as f:
+            f.write(data)
+        got = _outcome(db.read_markers_bin, path)
+        want = _outcome(_python_walk, path)
+        if isinstance(want, str):
+            assert got == want
+            n_errors += 1
+        else:
+            assert not isinstance(got, str), got
+            _assert_same_read(got, want)
+            n_equal += 1
+    assert n_errors > 0
+    assert n_equal > 0 or mutation == "truncate"
