@@ -87,6 +87,7 @@ from __future__ import annotations
 import os
 import sys
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -128,6 +129,15 @@ def default_host_workers() -> int:
     batches; on a small host they would only leave stragglers."""
     spare = max(0, (os.cpu_count() or 1) - 2)
     return int(os.environ.get("SKANI_TPU_HOST_WORKERS", str(min(2, spare))))
+
+
+def fallback_workers(threads: int, host_workers: int) -> int:
+    """run_pairs' threads for overflow rows: of the job's `threads` (at
+    most the cores), those left beyond the dispatching thread, the
+    finalize thread and the steal-workers, and at least one, so that an
+    overflow row never holds up the finalize thread."""
+    threads = min(max(int(threads or 1), 1), os.cpu_count() or 1)
+    return max(1, threads - 2 - host_workers)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -352,7 +362,9 @@ def phase_a(db, ab_idx, A: int, I_CAP: int, C_CAP: int, L_CAP: int,
     "sorted_packed" only, experimental) in place of the fill and
     forward-fills.  The regroup into the padded layout is one scatter per
     payload; the reference's fused multi-payload regroup is an A/B knob
-    that is off by default there and is not ported.
+    that is off by default there and is not ported.  A batch that reaches
+    the DP's choice counts one `dp_batches_compact` or
+    `dp_batches_padded` (stats.py).
 
     Returns the packed int32 readback, (R, 6*I_CAP + C_CAP + 3) for
     "sorted_packed" and (R, 10*I_CAP + 3*C_CAP + 3) otherwise, or a small
@@ -663,6 +675,9 @@ def phase_a(db, ab_idx, A: int, I_CAP: int, C_CAP: int, L_CAP: int,
                     and C_CAP * 64 < (1 << 31))
     use_compact_w = (compact_common and gen_mode == "sorted"
                      and compact_wide and band < 32)
+    stats.add("dp_batches_compact"
+              if use_compact2 or use_compact3 or use_compact_w
+              else "dp_batches_padded")
     valid_c = ok_place
     if use_compact2:
         w1 = torch.where(ok_place, ((cid & 31) << CID_SHIFT)
@@ -1192,14 +1207,32 @@ class DevicePairEngine:
             return host, ev, args["I_CAP"], args["C_CAP"]
         return ph, None, args["I_CAP"], args["C_CAP"]
 
-    def _process_batch_native(self, group, packed, out, icap, ccap):
+    def _exact_pair(self, out, t, ri, qi, mp) -> None:
+        """One overflow row on the exact per-pair path (applies GBDT)."""
+        from ..ani import chain_seeds_native
+        with stats.span("overflow_fallback"):
+            out[t] = chain_seeds_native(self.sketches[ri],
+                                        self.sketches[qi], mp)
+
+    def _overflow_row(self, out, t, ri, qi, mp, fallback=None) -> None:
+        """An overflow row: counted here, scored on the exact per-pair
+        path by `fallback(t, ri, qi, mp)` (run_pairs hands it to its
+        overflow threads) or, without one, here."""
+        stats.add("pairs_overflow")
+        if fallback is not None:
+            fallback(t, ri, qi, mp)
+        else:
+            self._exact_pair(out, t, ri, qi, mp)
+
+    def _process_batch_native(self, group, packed, out, icap, ccap,
+                              fallback=None):
         """One native call for the whole batch's post-readback work:
         unpack + overlap resolution + rank answering + estimator tail +
         trimmed mean + bootstrap CI (native/skani_core.cpp
         finalize_device_batch); overflow rows take the exact per-pair
-        path."""
+        path (_overflow_row)."""
         from .. import native
-        from ..ani import AniEstResult, chain_seeds_native
+        from ..ani import AniEstResult
         from ..gbdt import predict_from_ani_res_batch
         from . import rank_host
 
@@ -1262,9 +1295,7 @@ class DevicePairEngine:
         for w, (t, _a, _b, sw, mp, ri, qi, _ba) in enumerate(group):
             status = out_i[w, 0]
             if status == 2:       # overflow -> exact per-pair fallback
-                stats.add("pairs_overflow")
-                out[t] = chain_seeds_native(self.sketches[ri],
-                                            self.sketches[qi], mp)
+                self._overflow_row(out, t, ri, qi, mp, fallback)
                 continue
             if status == 1:       # no chains -> nan result
                 r = AniEstResult()
@@ -1390,11 +1421,13 @@ class DevicePairEngine:
                 np.asarray(qc), np.asarray(qv)))
         return batch_recs, ranks
 
-    def _finalize_batch(self, group, batch_recs, ranks, out):
+    def _finalize_batch(self, group, batch_recs, ranks, out,
+                        fallback=None):
         """The Python batch finalize's tail: per-chunk estimates
         (_finalize_chunks), then finalize_ani's trimmed mean, bootstrap CI
-        and AF gates a row; overflow rows take the exact per-pair path."""
-        from ..ani import chain_seeds_native, finalize_ani
+        and AF gates a row; overflow rows take the exact per-pair path
+        (_overflow_row)."""
+        from ..ani import finalize_ani
         from ..gbdt import predict_from_ani_res_batch
 
         fresh, fresh_model = [], None
@@ -1402,8 +1435,7 @@ class DevicePairEngine:
             ref = self.sketches[ri]
             q = self.sketches[qi]
             if batch_recs[w] is None:
-                stats.add("pairs_overflow")
-                out[t] = chain_seeds_native(ref, q, mp)   # applies GBDT
+                self._overflow_row(out, t, ri, qi, mp, fallback)
                 continue
             recs, totals = batch_recs[w]
             ani_ests = self._finalize_chunks(recs, ranks[w], int(ref.c), mp)
@@ -1539,16 +1571,21 @@ class DevicePairEngine:
         (default: default_host_workers()) take single pairs from the back
         of the queue and score them on the exact native path
         (chain_seeds_native); they start only where the queue holds more
-        than two batches.  Both paths are exact, so the split never
-        changes a result.  SKANI_TPU_TIMING=1 prints one line a device
-        batch to stderr.
+        than two batches.  The finalize thread hands each overflow row to
+        a pool of fallback_workers() threads, made at the first one,
+        which score it on the same exact path while batches go on.  Both
+        paths are exact, so the split never changes a result.
+        SKANI_TPU_TIMING=1 prints one line a device batch to stderr.
 
         Spans (stats.py): `dispatch` and `readback` a batch on this
-        thread, `finalize` a batch on the finalize thread, and
-        `run_pairs_drain` from the first time no batch is left to
-        dispatch until return (the last readbacks, the finalize queue's
-        drain, the workers' joins); each steal-worker adds its life to
-        `steal_s` when it exits, and makes no torch call.
+        thread, `finalize` a batch on the finalize thread,
+        `overflow_fallback` around each overflow row's exact per-pair
+        path on its pool thread, and `run_pairs_drain` from the first
+        time no batch is left to dispatch until return (the last
+        readbacks, the finalize queue's drain, the workers' joins, the
+        overflow rows still running); each steal-worker adds its life to
+        `steal_s` when it exits, and makes no torch call; neither does a
+        fallback thread.
 
         Ordered duplicates of the same unordered pair are computed once and
         mirrored (the estimator is orientation-invariant by construction)."""
@@ -1583,15 +1620,28 @@ class DevicePairEngine:
             finally:
                 stats.add("steal_s", time.perf_counter() - t0)
 
+        pool, pending = [], []
+
+        def fallback(t, ri, qi, mp):
+            # only the one thread that finalizes batches calls this
+            if not pool:
+                pool.append(ThreadPoolExecutor(
+                    fallback_workers(getattr(self.command_params,
+                                             "threads", 1), host_workers),
+                    thread_name_prefix="overflow_fallback"))
+            pending.append(pool[0].submit(self._exact_pair, out, t, ri, qi,
+                                          mp))
+
         def finalize(group, packed, icap, ccap, t_read):
             with stats.span("finalize") as fin:
                 if self.py_finalize:
                     batch_recs, ranks = self._host_process(group, packed,
                                                            icap, ccap)
-                    self._finalize_batch(group, batch_recs, ranks, out)
+                    self._finalize_batch(group, batch_recs, ranks, out,
+                                         fallback)
                 else:
                     self._process_batch_native(group, packed, out, icap,
-                                               ccap)
+                                               ccap, fallback)
             stats.add("device_batches")
             stats.add("pairs_device", len(group))
             if timing:
@@ -1667,6 +1717,8 @@ class DevicePairEngine:
                     break
         except BaseException:
             work.close()     # the device path failed: stop the workers
+            for f in pending:
+                f.cancel()
             raise
         finally:
             if fz is not None:
@@ -1674,6 +1726,10 @@ class DevicePairEngine:
                 fz.join()
             for w in workers:
                 w.join()
+            if pool:
+                pool[0].shutdown(wait=True)
+                errors += [f.exception() for f in pending
+                           if not f.cancelled() and f.exception()]
             if draining:
                 drain.__exit__(None, None, None)
         if errors:
