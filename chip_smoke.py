@@ -1037,7 +1037,7 @@ def search(tmp, sets, seed, length):
     the default run's page and of a `sorted_packed` page of the paged
     run."""
     from skani_tpu_torch import db, engine, synth
-    from skani_tpu_torch.kernels.device_db import _pack_genome
+    from skani_tpu_torch.kernels.device_db import _pack_rows
     third = synth.genome_set(seed + 2, 16, length, copies=_COPIES,
                              rates=(0.003, 0.03), n_split=4, contigs=(2, 8))
     # the third base's genomes, the queries and the databases stay in
@@ -1180,9 +1180,9 @@ def search(tmp, sets, seed, length):
                      for v in eng.db.arrays.values()),
         "ms": cuda_ms(lambda: eng.db.update_rows(slots, chunk), 5),
         # the host's share: packing the rows at the database's (K, P)
-        "host_pack_ms": host_ms(lambda: [
-            _pack_genome(s, eng.db.K, eng.db.P, eng.db.mode != "legacy")
-            for s in chunk], 5)}
+        "host_pack_ms": host_ms(lambda: _pack_rows(
+            chunk, eng.db.K, eng.db.P, eng.db.mode != "legacy",
+            eng.db.threads), 5)}
     # the update_rows timing rewrote the chunk's rows with the same
     # queries: the default batch reads them as it was built
     return (by_run, batches), info

@@ -36,6 +36,12 @@ gather per side.
 `DeviceDb.update_rows` swaps genome rows in place (resident `search`
 streams queries through reserved rows with it).
 
+The row tables are packed on the host by one native pass a genome
+(csrc/db_pack.cpp, `_pack_rows`), straight into the final tables and
+across genomes on the caller's `threads`; `_pack_genome` is its plain
+version and packs any genome the native pass does not take.  The stats
+counters `db_pack_native` / `db_pack_fallback` count the genomes of each.
+
 Host-to-device bytes (builds and row updates) are counted in the stats
 counter `upload_bytes`; a build's host packing and upload are the spans
 `db_pack` and `db_upload`, a row update's `update_rows_pack` and
@@ -48,7 +54,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from .. import stats
+from .. import native, stats
 
 KMER_SENTINEL = np.uint32(0xFFFFFFFF)
 CTG_SENTINEL = np.int32(0x3FFFFFFF)
@@ -132,6 +138,72 @@ def _pack_genome(s, K: int, P: int, srt: bool):
     return out
 
 
+def _seed_arrays(s):
+    """`s`'s seed_kmers, seed_starts, seed_pos, seed_contig, seed_canon
+    where the native pack takes them (1-D, C-contiguous, aligned, of
+    dtypes uint32, int64, uint32, uint32 and bool or uint8, lengths that
+    agree), else None."""
+    arrs = (s.seed_kmers, s.seed_starts, s.seed_pos, s.seed_contig,
+            s.seed_canon)
+    dtypes = ((np.uint32,), (np.int64,), (np.uint32,), (np.uint32,),
+              (np.bool_, np.uint8))
+    for a, ok in zip(arrs, dtypes):
+        if not (isinstance(a, np.ndarray) and a.ndim == 1
+                and a.flags.c_contiguous and a.flags.aligned
+                and a.dtype in ok):
+            return None
+    if (len(arrs[1]) != len(arrs[0]) + 1
+            or not len(arrs[2]) == len(arrs[3]) == len(arrs[4])):
+        return None
+    return arrs
+
+
+def _pack_rows(sketches: Sequence, K: int, P: int, srt: bool,
+               threads: int = 1) -> Dict[str, np.ndarray]:
+    """`_pack_genome`'s row pieces of every sketch, stacked: (G, K) kmers,
+    starts, counts, (G, P) pos, ctgc (+ spos, sctgc, skid when srt) and
+    (G,) n_pos.  The native pass writes each row it takes in place on
+    `threads` threads; `_pack_genome` packs the rest.  Raises ValueError
+    for a sketch wider than (K, P)."""
+    G = len(sketches)
+    names = ("pos", "ctgc") + (("spos", "sctgc", "skid") if srt else ())
+    t = dict(kmers=np.empty((G, K), np.uint32),
+             starts=np.empty((G, K), np.int32),
+             counts=np.empty((G, K), np.int32),
+             **{k: np.empty((G, P), np.int32) for k in names},
+             n_pos=np.empty(G, np.int32))
+    status = np.full(G, 2, np.int8)
+    lib = native.dbpack_lib() if G else None
+    if lib is not None:
+        at = np.zeros((5, G), np.uint64)
+        nk = np.full(G, -1, np.int64)
+        npos = np.zeros(G, np.int64)
+        for g, s in enumerate(sketches):
+            arrs = _seed_arrays(s)
+            if arrs is None:
+                continue
+            at[:, g] = [a.ctypes.data for a in arrs]
+            nk[g] = len(arrs[0])
+            npos[g] = len(arrs[2])
+        lib.skt_db_pack(
+            0, G, int(threads), *at, nk, npos, K, P,
+            *(t[k].ctypes.data for k in ("kmers", "starts", "counts", "pos",
+                                         "ctgc")),
+            *((t[k].ctypes.data for k in ("spos", "sctgc", "skid")) if srt
+              else (None,) * 3),
+            t["n_pos"].ctypes.data, status.ctypes.data)
+        if (status == 1).any():
+            raise ValueError("sketch exceeds DeviceDb padded widths")
+    fallback = np.flatnonzero(status)
+    for g in fallback:
+        rowd = _pack_genome(sketches[g], K, P, srt)
+        for k, v in t.items():
+            v[g] = rowd[k]
+    stats.add("db_pack_native", G - len(fallback))
+    stats.add("db_pack_fallback", len(fallback))
+    return t
+
+
 MODES = ("sorted_packed", "sorted", "legacy")
 
 
@@ -151,7 +223,8 @@ def _mode_tables(mode: str, t: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
 
 def build_arrays(sketches: Sequence, dense_join_budget: int = 0,
                  band: int = 0, mode: str = "sorted_packed",
-                 min_k: int = 0, min_p: int = 0) -> Dict[str, np.ndarray]:
+                 min_k: int = 0, min_p: int = 0,
+                 threads: int = 1) -> Dict[str, np.ndarray]:
     """Host-side tables of one `mode` for `sketches`: kmers (uint32),
     starts, counts, and
     "sorted_packed": n_pos, apk, bpk, skid, and — when the dense join fits
@@ -159,7 +232,7 @@ def build_arrays(sketches: Sequence, dense_join_budget: int = 0,
     "sorted": n_pos, pos, ctgc, spos, sctgc, skid;
     "legacy": pos, ctgc.
     `min_k` / `min_p` are floors for the padded widths (tests reach the
-    big-genome branches with them)."""
+    big-genome branches with them); `threads` pack the rows."""
     if mode not in MODES:
         raise ValueError(f"unknown DeviceDb mode {mode!r}")
     G = len(sketches)
@@ -169,39 +242,11 @@ def build_arrays(sketches: Sequence, dense_join_budget: int = 0,
                       + [16]), step=2048, floor=4096)
     P = _round_up(max([min_p] + [len(s.seed_pos) for s in sketches]
                       + [16]))
-    srt = mode != "legacy"
-    kmers = np.full((G, K), KMER_SENTINEL, dtype=np.uint32)
-    starts = np.zeros((G, K), dtype=np.int32)
-    counts = np.zeros((G, K), dtype=np.int32)
-    pos = np.zeros((G, P), dtype=np.int32)
-    ctgc = np.full((G, P), CTG_SENTINEL * 2, dtype=np.int32)
-    if srt:
-        spos = np.zeros((G, P), dtype=np.int32)
-        sctgc = np.full((G, P), CTG_SENTINEL * 2, dtype=np.int32)
-        skid = np.zeros((G, P), dtype=np.int32)
     max_ctgs = max((len(s.contig_lengths) for s in sketches), default=0)
     if max_ctgs >= (1 << 28):
         raise ValueError("too many contigs for device packing")
-    n_pos = np.zeros(G, dtype=np.int32)
-    for g, s in enumerate(sketches):
-        rowd = _pack_genome(s, K, P, srt)
-        kmers[g] = rowd["kmers"]
-        starts[g] = rowd["starts"]
-        counts[g] = rowd["counts"]
-        pos[g] = rowd["pos"]
-        ctgc[g] = rowd["ctgc"]
-        if srt:
-            spos[g] = rowd["spos"]
-            sctgc[g] = rowd["sctgc"]
-            skid[g] = rowd["skid"]
-        n_pos[g] = rowd["n_pos"]
-    if srt:
-        pieces = dict(kmers=kmers, starts=starts, counts=counts, pos=pos,
-                      ctgc=ctgc, spos=spos, sctgc=sctgc, skid=skid,
-                      n_pos=n_pos)
-    else:
-        pieces = dict(kmers=kmers, starts=starts, counts=counts, pos=pos,
-                      ctgc=ctgc)
+    pieces = _pack_rows(sketches, K, P, mode != "legacy", threads)
+    starts, skid = pieces["starts"], pieces.get("skid")
     arrays = _mode_tables(mode, pieces)
     if mode != "sorted_packed":
         return arrays
@@ -259,14 +304,17 @@ class DeviceDb:
     K = padded unique-kmer count, P = padded seed-position count, U =
     padded kmer-union width of the dense join tables.  `arrays` maps each
     table name to its tensor; kmers are sorted ascending with
-    KMER_SENTINEL padding and kept as torch.uint32."""
+    KMER_SENTINEL padding and kept as torch.uint32.  `threads` pack the
+    host rows, of the build and of `update_rows`."""
 
     def __init__(self, sketches: Sequence, device,
                  mode: str = "sorted_packed", dense_join_budget: int = 0,
-                 band: int = 0, min_k: int = 0, min_p: int = 0):
+                 band: int = 0, min_k: int = 0, min_p: int = 0,
+                 threads: int = 1):
+        self.threads = threads
         with stats.span("db_pack"):
             arrays = build_arrays(sketches, dense_join_budget, band, mode,
-                                  min_k, min_p)
+                                  min_k, min_p, threads)
         self._adopt(arrays, band, device)
 
     @classmethod
@@ -276,6 +324,7 @@ class DeviceDb:
         mode's layout), e.g. those of another implementation.  The mode
         is read off the table names."""
         db = cls.__new__(cls)
+        db.threads = 1
         db._adopt({k: np.asarray(v) for k, v in arrays.items()}, band,
                   device)
         return db
@@ -324,10 +373,8 @@ class DeviceDb:
             return
         with stats.span("update_rows"):
             with stats.span("update_rows_pack"):
-                rows = [_pack_genome(s, self.K, self.P,
-                                     self.mode != "legacy")
-                        for s in sketches]
-                pieces = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+                pieces = _pack_rows(sketches, self.K, self.P,
+                                    self.mode != "legacy", self.threads)
                 tables = _mode_tables(self.mode, pieces)
             stats.add("upload_bytes", sum(v.nbytes for v in tables.values()))
             with stats.span("update_rows_upload"):

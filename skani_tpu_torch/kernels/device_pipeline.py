@@ -131,13 +131,17 @@ def default_host_workers() -> int:
     return int(os.environ.get("SKANI_TPU_HOST_WORKERS", str(min(2, spare))))
 
 
+def job_threads(threads) -> int:
+    """The job's `-t` threads, at least one and at most the cores."""
+    return min(max(int(threads or 1), 1), os.cpu_count() or 1)
+
+
 def fallback_workers(threads: int, host_workers: int) -> int:
     """run_pairs' threads for overflow rows: of the job's `threads` (at
     most the cores), those left beyond the dispatching thread, the
     finalize thread and the steal-workers, and at least one, so that an
     overflow row never holds up the finalize thread."""
-    threads = min(max(int(threads or 1), 1), os.cpu_count() or 1)
-    return max(1, threads - 2 - host_workers)
+    return max(1, job_threads(threads) - 2 - host_workers)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -990,7 +994,9 @@ class DevicePairEngine:
                                mode=self.gen_mode,
                                dense_join_budget=(0 if reserved_slots
                                                   else DENSE_JOIN_BUDGET),
-                               band=db_band, min_k=min_k, min_p=min_p)
+                               band=db_band, min_k=min_k, min_p=min_p,
+                               threads=job_threads(getattr(
+                                   command_params, "threads", 1)))
         # the position-axis dense join whenever its tables exist, the
         # kmer-axis one when only its tables do, else the merge join
         have = {"dense_pos": "gidp" in self.db.arrays,
@@ -1287,8 +1293,7 @@ class DevicePairEngine:
             np.ascontiguousarray(addrs[1]), np.ascontiguousarray(lens[1]),
             np.ascontiguousarray(addrs[2]), np.ascontiguousarray(lens[2]),
             out_f.reshape(-1), out_i.reshape(-1),
-            min(getattr(self.command_params, "threads", 1) or 1,
-                os.cpu_count() or 1))
+            job_threads(getattr(self.command_params, "threads", 1)))
         del keep
         f32 = np.float32
         fresh, fresh_model = [], None

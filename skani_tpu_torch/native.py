@@ -1,11 +1,13 @@
-"""ctypes bindings for the native core (native/skani_core.cpp) and the
-port's own markers.bin walker (csrc/markers_bin.cpp).
+"""ctypes bindings for the native core (native/skani_core.cpp), the
+port's own markers.bin walker (csrc/markers_bin.cpp) and its DeviceDb
+pack (csrc/db_pack.cpp).
 
 Builds each source on first use (g++ -O3) into skani_tpu_torch/_native/
 (never into another package's directory); falls back cleanly if the
 toolchain is unavailable (`available()` -> False and the NumPy reference
 path is used; `markers_lib()` -> None and db.py's Python walker reads
-markers.bin).  The build writes a process-private temporary file and
+markers.bin; `dbpack_lib()` -> None and device_db._pack_genome packs every
+row).  The build writes a process-private temporary file and
 renames it into place, so concurrent first uses (test workers, the CLI and
 a smoke run) never load a half-written library.
 """
@@ -25,11 +27,15 @@ _OUT_DIR = os.path.join(_HERE, "_native")
 _SO = os.path.join(_OUT_DIR, "libskani_core.so")
 _MARKERS_SRC = os.path.join(_HERE, "csrc", "markers_bin.cpp")
 _MARKERS_SO = os.path.join(_OUT_DIR, "libskt_markers.so")
+_DBPACK_SRC = os.path.join(_HERE, "csrc", "db_pack.cpp")
+_DBPACK_SO = os.path.join(_OUT_DIR, "libskt_dbpack.so")
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 _markers_lib: Optional[ctypes.CDLL] = None
 _markers_tried = False
+_dbpack_lib: Optional[ctypes.CDLL] = None
+_dbpack_tried = False
 _lib_lock = threading.Lock()
 
 
@@ -167,6 +173,30 @@ def markers_lib() -> Optional[ctypes.CDLL]:
         lib.skt_markers_compact.restype = None
         lib.skt_markers_compact.argtypes = [u8p, ctypes.c_int64, u64p]
         _markers_lib = lib
+        return lib
+
+
+def dbpack_lib() -> Optional[ctypes.CDLL]:
+    """The DeviceDb row pack (csrc/db_pack.cpp; device_db._pack_rows), or
+    None where it cannot be built."""
+    global _dbpack_lib, _dbpack_tried
+    with _lib_lock:
+        if _dbpack_lib is not None or _dbpack_tried:
+            return _dbpack_lib
+        _dbpack_tried = True
+        so = _build(_DBPACK_SRC, _DBPACK_SO)
+        if so is None:
+            return None
+        lib = ctypes.CDLL(so)
+        u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        i64 = ctypes.c_int64
+        ptr = ctypes.c_void_p
+        lib.skt_db_pack.restype = i64
+        lib.skt_db_pack.argtypes = [
+            i64, i64, i64, u64p, u64p, u64p, u64p, u64p, i64p, i64p, i64,
+            i64] + [ptr] * 10
+        _dbpack_lib = lib
         return lib
 
 

@@ -187,6 +187,9 @@ def driver_report(driver: str, wall_s: float,
     markers = (f"markers[native={int(g('markers_native'))}"
                f" fallback={int(g('markers_fallback'))}]"
                if g("markers_native") or g("markers_fallback") else "")
+    db_pack = (f"db_pack[native={int(g('db_pack_native'))}"
+               f" fallback={int(g('db_pack_fallback'))}]"
+               if g("db_pack_native") or g("db_pack_fallback") else "")
     dev = (f"batches={int(g('device_batches'))}"
            f" readback={g('readback_s'):.2f}s"
            f" finalize={g('finalize_s'):.2f}s"
@@ -195,4 +198,5 @@ def driver_report(driver: str, wall_s: float,
     if root is not None:
         dev += f" uncovered={root.self_seconds():.2f}s"
     return " ".join(p for p in (f"perf[{driver}]: wall={wall_s:.2f}s",
-                                phases, split, markers, pairs, dev) if p)
+                                phases, split, markers, db_pack, pairs,
+                                dev) if p)
