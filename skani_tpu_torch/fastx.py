@@ -27,18 +27,30 @@ def _open_maybe_gzip(path: str) -> io.BufferedReader:
     return f
 
 
-def iter_fastx(path: str) -> Iterator[Tuple[str, np.ndarray]]:
-    """Yield (contig_id, sequence bytes as uint8 array) records.
-
-    Raises InvalidFastxError for files that are not fasta/fastq, matching the
-    reference's warn-and-skip behavior at a higher level.
-    """
+def read_fastx(path: str) -> bytes:
+    """A fasta/fastq file's bytes (gunzipped); InvalidFastxError for a
+    missing or empty file."""
     if not os.path.isfile(path):
         raise InvalidFastxError(f"{path} does not exist")
     with _open_maybe_gzip(path) as f:
         data = f.read()
     if not data:
         raise InvalidFastxError(f"{path} is empty")
+    return data
+
+
+def iter_fastx(path: str) -> Iterator[Tuple[str, np.ndarray]]:
+    """Yield (contig_id, sequence bytes as uint8 array) records.
+
+    Raises InvalidFastxError for files that are not fasta/fastq, matching the
+    reference's warn-and-skip behavior at a higher level.
+    """
+    yield from iter_fastx_bytes(read_fastx(path), path)
+
+
+def iter_fastx_bytes(data: bytes,
+                     path: str) -> Iterator[Tuple[str, np.ndarray]]:
+    """iter_fastx over a file's bytes (read_fastx)."""
     first = data[:1]
     if first == b">":
         yield from _iter_fasta(data)

@@ -24,6 +24,8 @@ scan.
   `fmh_seeds_device(seq, params, device=None)`: what fmh_seeds_np returns,
   per contig (numpy), seeded on `device` (default CUDA; RuntimeError
   without it).
+* `fmh_seeds_device_flat(seqs, params, device=None)`: the same seeds
+  unsplit, one numpy array each with the contigs' offsets.
 * `fmh_seeds_plain(seq, params)`: the plain version of one contig, in
   torch int64 on the CPU.
 
@@ -241,12 +243,18 @@ def seed_batch(bases: torch.Tensor, offs: torch.Tensor, k: int, c: int,
     return kmers, pos, canon, markers, keep_off[blk], mark_off[blk]
 
 
+def _host(out):
+    """seed_batch's tensors as numpy: (kmers u32, positions u32, canonical
+    bool, markers u64, seed_offs int64, marker_offs int64)."""
+    kmers, pos, canon, markers, so, mo = (x.cpu().numpy() for x in out)
+    return (kmers.view(np.uint32), pos.view(np.uint32), canon,
+            markers.view(np.uint64), so, mo)
+
+
 def _split(out, n: int):
     """seed_batch's tensors -> per contig (kmers u32, positions u32,
     canonical bool, markers u64), as numpy."""
-    kmers, pos, canon, markers, so, mo = (x.cpu().numpy() for x in out)
-    kmers, pos = kmers.view(np.uint32), pos.view(np.uint32)
-    markers = markers.view(np.uint64)
+    kmers, pos, canon, markers, so, mo = _host(out)
     return [(kmers[so[b]:so[b + 1]], pos[so[b]:so[b + 1]],
              canon[so[b]:so[b + 1]], markers[mo[b]:mo[b + 1]])
             for b in range(n)]
@@ -261,23 +269,43 @@ def _flat(seqs: Sequence[np.ndarray]):
     return bases, offs
 
 
+def _seed_on(seqs: Sequence[np.ndarray], params, device):
+    """seed_batch of `seqs` on `device` (None for no contigs)."""
+    from .device_pipeline import resolve_device
+    if params.k > 16:
+        raise ValueError("Value of k > 16 for DNA; not allowed.")
+    dev = resolve_device(device)
+    if not len(seqs):
+        return None
+    bases, offs = _flat(seqs)
+    return seed_batch(torch.from_numpy(bases).to(dev),
+                      torch.from_numpy(offs).to(dev), params.k, params.c,
+                      params.marker_c)
+
+
 def fmh_seeds_device_batch(seqs: Sequence[np.ndarray], params,
                            device=None) -> List[tuple]:
     """Seeds of many contigs in one kernel pair on `device` (default CUDA;
     RuntimeError without it; "cpu" runs the plain version): per contig,
     what sketch.fmh_seeds_np returns (seed kmers u32, positions u32,
     canonical bool, markers u64 in window order, not deduplicated)."""
-    from .device_pipeline import resolve_device
-    if params.k > 16:
-        raise ValueError("Value of k > 16 for DNA; not allowed.")
-    dev = resolve_device(device)
-    if not len(seqs):
-        return []
-    bases, offs = _flat(seqs)
-    out = seed_batch(torch.from_numpy(bases).to(dev),
-                     torch.from_numpy(offs).to(dev), params.k, params.c,
-                     params.marker_c)
-    return _split(out, len(seqs))
+    out = _seed_on(seqs, params, device)
+    return [] if out is None else _split(out, len(seqs))
+
+
+def fmh_seeds_device_flat(seqs: Sequence[np.ndarray], params,
+                          device=None):
+    """fmh_seeds_device_batch's seeds unsplit, as numpy: (kmers u32,
+    positions u32, canonical bool, markers u64, seed_offs (B + 1,) int64,
+    marker_offs (B + 1,) int64), contig b's seeds at [seed_offs[b],
+    seed_offs[b + 1]) and its markers at [marker_offs[b],
+    marker_offs[b + 1]) (sketch._device_windows' native pass)."""
+    out = _seed_on(seqs, params, device)
+    if out is None:
+        z = np.zeros(1, dtype=np.int64)
+        return (np.zeros(0, np.uint32), np.zeros(0, np.uint32),
+                np.zeros(0, bool), np.zeros(0, np.uint64), z, z.copy())
+    return _host(out)
 
 
 def fmh_seeds_device(seq: np.ndarray, params, device=None):
@@ -299,7 +327,8 @@ def fmh_seeds_plain(seq: np.ndarray, params):
 class DeviceSeeder:
     """The seeder of sketch.default_seeder's device route: called on one
     contig it seeds that contig on `device`; sketch.fastx_to_sketches
-    seeds whole file sets through `batch`."""
+    seeds whole file sets through `batch_flat` (`batch` where the native
+    sketch pass is absent)."""
 
     def __init__(self, device):
         self.device = device
@@ -309,3 +338,6 @@ class DeviceSeeder:
 
     def batch(self, seqs, params):
         return fmh_seeds_device_batch(seqs, params, self.device)
+
+    def batch_flat(self, seqs, params):
+        return fmh_seeds_device_flat(seqs, params, self.device)

@@ -1,15 +1,16 @@
 """ctypes bindings for the native core (native/skani_core.cpp), the
-port's own markers.bin walker (csrc/markers_bin.cpp) and its DeviceDb
-pack (csrc/db_pack.cpp).
+port's own markers.bin walker (csrc/markers_bin.cpp), its DeviceDb
+pack (csrc/db_pack.cpp) and its sketch pass (csrc/sketch_pass.cpp).
 
 Builds each source on first use (g++ -O3) into skani_tpu_torch/_native/
 (never into another package's directory); falls back cleanly if the
 toolchain is unavailable (`available()` -> False and the NumPy reference
 path is used; `markers_lib()` -> None and db.py's Python walker reads
 markers.bin; `dbpack_lib()` -> None and device_db._pack_genome packs every
-row).  The build writes a process-private temporary file and
-renames it into place, so concurrent first uses (test workers, the CLI and
-a smoke run) never load a half-written library.
+row; `sketch_lib()` -> None and sketch.py's Python path sketches every
+file).  The build writes a process-private temporary file and renames it
+into place, so concurrent first uses (test workers, the CLI and a smoke
+run) never load a half-written library.
 """
 from __future__ import annotations
 
@@ -29,6 +30,8 @@ _MARKERS_SRC = os.path.join(_HERE, "csrc", "markers_bin.cpp")
 _MARKERS_SO = os.path.join(_OUT_DIR, "libskt_markers.so")
 _DBPACK_SRC = os.path.join(_HERE, "csrc", "db_pack.cpp")
 _DBPACK_SO = os.path.join(_OUT_DIR, "libskt_dbpack.so")
+_SKETCH_SRC = os.path.join(_HERE, "csrc", "sketch_pass.cpp")
+_SKETCH_SO = os.path.join(_OUT_DIR, "libskt_sketch.so")
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
@@ -36,6 +39,8 @@ _markers_lib: Optional[ctypes.CDLL] = None
 _markers_tried = False
 _dbpack_lib: Optional[ctypes.CDLL] = None
 _dbpack_tried = False
+_sketch_lib: Optional[ctypes.CDLL] = None
+_sketch_tried = False
 _lib_lock = threading.Lock()
 
 
@@ -176,6 +181,39 @@ def dbpack_lib() -> Optional[ctypes.CDLL]:
         return lib
 
 
+def sketch_lib() -> Optional[ctypes.CDLL]:
+    """The sketch pass (csrc/sketch_pass.cpp; sketch._read_file,
+    sketch_file, _device_windows), or None where it cannot be built."""
+    global _sketch_lib, _sketch_tried
+    with _lib_lock:
+        if _sketch_lib is not None or _sketch_tried:
+            return _sketch_lib
+        _sketch_tried = True
+        so = _build(_SKETCH_SRC, _SKETCH_SO)
+        if so is None:
+            return None
+        lib = ctypes.CDLL(so)
+        u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+        u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        i64 = ctypes.c_int64
+        lib.skt_fasta_parse.restype = i64
+        lib.skt_fasta_parse.argtypes = [ctypes.c_char_p, i64, i64, u8p, i64p,
+                                        i64]
+        lib.skt_sketch_seed.restype = ctypes.c_void_p
+        lib.skt_sketch_seed.argtypes = [u8p, i64p, i64, i64, i64, i64,
+                                        ctypes.c_int32, i64p]
+        lib.skt_sketch_assemble.restype = ctypes.c_void_p
+        lib.skt_sketch_assemble.argtypes = [u32p, u32p, u8p, i64p, i64, u64p,
+                                            i64, ctypes.c_int32, i64p]
+        lib.skt_sketch_take.restype = None
+        lib.skt_sketch_take.argtypes = [ctypes.c_void_p, u32p, i64p, u32p,
+                                        u8p, u32p, u64p]
+        _sketch_lib = lib
+        return lib
+
+
 def fmh_seeds_native(seq: np.ndarray, params):
     """Native sketcher — exact same outputs as sketch.fmh_seeds_np."""
     lib = get_lib()
@@ -190,6 +228,67 @@ def fmh_seeds_native(seq: np.ndarray, params):
                         kmer, pos, canon, marker, ctypes.byref(nm))
     return (kmer[:cnt].copy(), pos[:cnt].copy(),
             canon[:cnt].astype(bool), marker[:nm.value].copy())
+
+
+def parse_fasta_native(data: bytes, min_len: int):
+    """skt_fasta_parse of a FASTA file's bytes: (rec, bases), rec (n, 4)
+    int64 rows (header offset and length in `data`, base offset and
+    length in `bases`) of the contigs of at least `min_len` bases, their
+    bases back to back in `bases`."""
+    lib = sketch_lib()
+    n = len(data)
+    bases = np.empty(n, dtype=np.uint8)
+    cap = n // max(min_len, 1) + 1
+    rec = np.empty((cap, 4), dtype=np.int64)
+    kept = lib.skt_fasta_parse(data, n, min_len, bases, rec, cap)
+    if kept < 0:
+        raise RuntimeError("skt_fasta_parse: contig table overflow")
+    return rec[:kept], bases
+
+
+def _take(lib, handle, counts):
+    """skt_sketch_take of a handle: (seeds, markers), seeds (kmers u32,
+    starts i64, pos u32, canon bool, contig u32) or None where the handle
+    holds none, markers u64 sorted unique."""
+    n, u, m = (int(x) for x in counts)
+    kmers = np.empty(u, dtype=np.uint32)
+    starts = np.empty(u + 1 if n else 0, dtype=np.int64)
+    pos = np.empty(n, dtype=np.uint32)
+    canon = np.empty(n, dtype=np.uint8)
+    contig = np.empty(n, dtype=np.uint32)
+    markers = np.empty(m, dtype=np.uint64)
+    lib.skt_sketch_take(handle, kmers, starts, pos, canon, contig, markers)
+    seeds = (kmers, starts, pos, canon.view(np.bool_), contig) if n else None
+    return seeds, markers
+
+
+def sketch_seed_native(bases: np.ndarray, offs: np.ndarray, params,
+                       seed: bool):
+    """skt_sketch_seed: the contigs of `bases` at int64 `offs` (n + 1)
+    seeded and assembled; _take's (seeds, markers)."""
+    lib = sketch_lib()
+    counts = np.zeros(3, dtype=np.int64)
+    h = lib.skt_sketch_seed(bases, offs, len(offs) - 1, params.c, params.k,
+                            params.marker_c, int(seed), counts)
+    return _take(lib, h, counts)
+
+
+def sketch_assemble_native(kmers: np.ndarray, pos: np.ndarray,
+                           canon: np.ndarray, offs: np.ndarray,
+                           markers: np.ndarray, seed: bool):
+    """skt_sketch_assemble: a file's seeds in encounter order (contig j's
+    at [offs[j], offs[j + 1]), offs from 0) and its markers assembled;
+    _take's (seeds, markers)."""
+    lib = sketch_lib()
+    counts = np.zeros(3, dtype=np.int64)
+    h = lib.skt_sketch_assemble(
+        np.ascontiguousarray(kmers, np.uint32),
+        np.ascontiguousarray(pos, np.uint32),
+        np.ascontiguousarray(canon).view(np.uint8),
+        np.ascontiguousarray(offs, np.int64), len(offs) - 1,
+        np.ascontiguousarray(markers, np.uint64), len(markers), int(seed),
+        counts)
+    return _take(lib, h, counts)
 
 
 def _marshal(sk):

@@ -246,16 +246,53 @@ def default_seeder(params: Optional[SketchParams] = None,
     return DeviceSeeder(dev)
 
 
-def _read_file(path: str, params: SketchParams):
-    """(Sketch without seeds, [(contig index, sequence)]) of one file, or
-    None for an invalid file or one with only contigs < MIN_LENGTH_CONTIG.
-    Timed as the `sketch_read` span."""
+def _native_pass(params: SketchParams, seeder) -> bool:
+    """Whether a file takes the native sketch pass (csrc/sketch_pass.cpp):
+    DNA, seeded by the native seeder or a device seeder's flat batch
+    (`batch_flat`), with the pass's library loaded.  Every other file
+    takes the Python path: fastx, the seeder a contig, _finalize_sketch."""
+    if params.use_aa:
+        return False
+    from . import native
+    if seeder is not native.fmh_seeds_native \
+            and not hasattr(seeder, "batch_flat"):
+        return False
+    return native.sketch_lib() is not None
+
+
+def _read_file(path: str, params: SketchParams, native_pass: bool = False):
+    """(Sketch without seeds, [(contig index, sequence)], flat) of one
+    file, or None for an invalid file or one with only contigs <
+    MIN_LENGTH_CONTIG.  On the native pass (a FASTA file where
+    `native_pass`) the sequences are views into one buffer of the kept
+    contigs' bases and flat is (that buffer, int64 offsets of the contigs
+    in it); otherwise fastx reads the file and flat is None.  Timed as the
+    `sketch_read` span."""
     sk = Sketch(file_name=path, marker_c=params.c, c=params.c, k=params.k,
                 amino_acid=params.use_aa)
     contigs = []
     with stats.span("sketch_read"):
         try:
-            for name, seq in fastx.iter_fastx(path):
+            data = fastx.read_fastx(path)
+        except fastx.InvalidFastxError:
+            return None
+        if native_pass and data[:1] == b">":
+            from . import native
+            rec, bases = native.parse_fasta_native(data, MIN_LENGTH_CONTIG)
+            if not len(rec):
+                return None
+            offs = np.empty(len(rec) + 1, dtype=np.int64)
+            offs[:-1] = rec[:, 2]
+            offs[-1] = rec[-1, 2] + rec[-1, 3]
+            sk.contigs = [data[a:a + n].decode("utf-8", "replace")
+                          for a, n in rec[:, :2].tolist()]
+            sk.contig_lengths = rec[:, 3].astype(np.uint32)
+            sk.total_sequence_length = int(offs[-1])
+            o = offs.tolist()
+            contigs = [(j, bases[o[j]:o[j + 1]]) for j in range(len(rec))]
+            return sk, contigs, (bases, offs)
+        try:
+            for name, seq in fastx.iter_fastx_bytes(data, path):
                 if len(seq) >= MIN_LENGTH_CONTIG:
                     sk.contigs.append(name)
                     sk.contig_lengths = np.append(
@@ -264,7 +301,7 @@ def _read_file(path: str, params: SketchParams):
                     contigs.append((len(contigs), seq))
         except fastx.InvalidFastxError:
             return None
-    return (sk, contigs) if contigs else None
+    return (sk, contigs, None) if contigs else None
 
 
 def _seed_parts(contigs, results, seed: bool):
@@ -282,21 +319,38 @@ def _seed_parts(contigs, results, seed: bool):
     return parts
 
 
+def _put(sk: Sketch, seeds, markers) -> None:
+    """The native pass's (seeds, markers) into `sk`: the fields
+    _finalize_sketch sets, left at their defaults where there are none."""
+    if seeds is not None:
+        (sk.seed_kmers, sk.seed_starts, sk.seed_pos, sk.seed_canon,
+         sk.seed_contig) = seeds
+    if len(markers):
+        sk.marker_seeds = markers
+
+
 def sketch_file(path: str, params: SketchParams, seed: bool = True,
                 seeder=None) -> Optional[Sketch]:
     """Sketch one fasta/fastq file into a single Sketch
     (reference: src/file_io.rs:141-252).  Returns None for invalid/empty
     files (caller warns+skips).  `seeder` overrides the per-contig kernel;
-    defaults to the fastest bit-exact kernel.
+    defaults to the fastest bit-exact kernel.  A FASTA file of DNA under
+    the native seeder takes the native pass (counted `sketch_native`),
+    any other file the Python path (`sketch_fallback`).
     """
     seeder = seeder or default_seeder(params)
-    r = _read_file(path, params)
+    r = _read_file(path, params, _native_pass(params, seeder))
     if r is None:
         return None
-    sk, contigs = r
+    sk, contigs, flat = r
     with stats.span("sketch_seed"):
-        _finalize_sketch(sk, *_seed_parts(
-            contigs, [seeder(s, params) for _j, s in contigs], seed))
+        if flat is not None:
+            from . import native
+            _put(sk, *native.sketch_seed_native(*flat, params, seed))
+        else:
+            _finalize_sketch(sk, *_seed_parts(
+                contigs, [seeder(s, params) for _j, s in contigs], seed))
+    stats.add("sketch_fallback" if flat is None else "sketch_native")
     return sk
 
 
@@ -342,6 +396,8 @@ def sketch_file_individual(path: str, params: SketchParams, seed: bool = True,
     finally:
         stats.add("sketch_read_s", read_s)
         stats.add("sketch_seed_s", seed_s)
+    if out:
+        stats.add("sketch_fallback")
     return out
 
 
@@ -357,30 +413,58 @@ def _device_windows(paths: List[str], params: SketchParams, seed: bool,
     sketches as the per-contig path.  stats counts the time this thread
     waits for reads (seed_read_wait_s), seeds (seed_batch_s: flattening,
     upload, kernels, download) and finalizes (seed_finalize_s), each a
-    span of that name closed before a window is yielded."""
+    span of that name closed before a window is yielded.  Under a seeder
+    with `batch_flat` (DeviceSeeder) each file takes the native pass:
+    parsed natively, then assembled from its slice of the window's flat
+    seeder outputs (counted `sketch_native`); under any other, fastx and
+    _finalize_sketch (`sketch_fallback`)."""
     import collections
     import concurrent.futures as cf
+    from . import native
+
+    native_pass = _native_pass(params, seeder)
 
     def finalize(item):
-        (sk, contigs), results = item
+        (sk, contigs, _flat), results = item
         _finalize_sketch(sk, *_seed_parts(contigs, results, seed))
+        stats.add("sketch_fallback")
+        return sk
+
+    def assemble(item):
+        sk, (kmers, pos, canon, markers, so, mo), b0, b1 = item
+        s0, s1, m0, m1 = so[b0], so[b1], mo[b0], mo[b1]
+        _put(sk, *native.sketch_assemble_native(
+            kmers[s0:s1], pos[s0:s1], canon[s0:s1], so[b0:b1 + 1] - s0,
+            markers[m0:m1], seed))
+        stats.add("sketch_native")
         return sk
 
     def flush(window):
-        seqs = [s for _pi, (_sk, contigs) in window for _j, s in contigs]
-        with stats.span("seed_batch"):
-            results = iter(seeder.batch(seqs, params))
-        items = [(r, [next(results) for _ in r[1]]) for _pi, r in window]
+        seqs = [s for _pi, r in window for _j, s in r[1]]
+        if native_pass:
+            with stats.span("seed_batch"):
+                out = seeder.batch_flat(seqs, params)
+            items, b = [], 0
+            for _pi, r in window:
+                items.append((r[0], out, b, b + len(r[1])))
+                b += len(r[1])
+            fin = assemble
+        else:
+            with stats.span("seed_batch"):
+                results = iter(seeder.batch(seqs, params))
+            items = [(r, [next(results) for _ in r[1]]) for _pi, r in window]
+            fin = finalize
         with stats.span("seed_finalize"):
             return [(pi, sk) for (pi, _r), sk
-                    in zip(window, ex.map(finalize, items))]
+                    in zip(window, ex.map(fin, items))]
 
     n = max(threads, 1)
     with cf.ThreadPoolExecutor(max_workers=n) as ex:
         def reads():
             ahead = collections.deque()
             for pi, p in enumerate(paths):
-                ahead.append((pi, p, ex.submit(_read_file, p, params)))
+                ahead.append((pi, p, ex.submit(_read_file, p, params,
+                                                  native_pass)))
                 if len(ahead) > 2 * n:
                     qi, q, fut = ahead.popleft()
                     with stats.span("seed_read_wait"):

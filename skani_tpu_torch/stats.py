@@ -186,6 +186,9 @@ def driver_report(driver: str, wall_s: float,
     markers = (f"markers[native={int(g('markers_native'))}"
                f" fallback={int(g('markers_fallback'))}]"
                if g("markers_native") or g("markers_fallback") else "")
+    sketch = (f"sketch[native={int(g('sketch_native'))}"
+              f" fallback={int(g('sketch_fallback'))}]"
+              if g("sketch_native") or g("sketch_fallback") else "")
     db_pack = (f"db_pack[native={int(g('db_pack_native'))}"
                f" fallback={int(g('db_pack_fallback'))}]"
                if g("db_pack_native") or g("db_pack_fallback") else "")
@@ -197,5 +200,5 @@ def driver_report(driver: str, wall_s: float,
     if root is not None:
         dev += f" uncovered={root.self_seconds():.2f}s"
     return " ".join(p for p in (f"perf[{driver}]: wall={wall_s:.2f}s",
-                                phases, split, markers, db_pack, pairs,
-                                dev) if p)
+                                phases, split, sketch, markers, db_pack,
+                                pairs, dev) if p)

@@ -880,6 +880,37 @@ def test_seed_batch_kernel_no_windows(dev):
     assert out[4].tolist() == out[5].tolist() == [0] * 4
 
 
+def test_device_route_native_pass_matches_host_route(dev, tmp_path):
+    """The CUDA device route (_device_windows under DeviceSeeder: the
+    native parse, the kernels' flat outputs, the native assemble) gives
+    the host route's sketches, sketch for sketch, in one window and in a
+    window flushed every second genome; every file counts as
+    `sketch_native`."""
+    from skani_tpu_torch import native, sketch
+    from skani_tpu_torch.kernels.seeding import DeviceSeeder
+    gs = synth.genome_set(25, 6, 400_000, n_repeats=4, n_split=3,
+                          contigs=(2, 40))
+    paths = synth.write_genome_set(str(tmp_path), gs)
+    sp = SketchParams()
+    host = [sketch.sketch_file(p, sp, seeder=native.fmh_seeds_native)
+            for p in paths]
+    for window_bases in (sketch.DEVICE_SEED_WINDOW_BASES, 700_000):
+        before = stats.snapshot()
+        got = [sk for w in sketch._device_windows(
+            paths, sp, True, DeviceSeeder(dev), None, 4, window_bases)
+            for _pi, sk in w]
+        assert stats.snapshot().get("sketch_native", 0) \
+            - before.get("sketch_native", 0) == len(paths)
+        assert [s.file_name for s in got] == [s.file_name for s in host]
+        for g, h in zip(got, host):
+            assert g.contigs == h.contigs
+            for f in ("contig_lengths", "seed_kmers", "seed_starts",
+                      "seed_pos", "seed_contig", "seed_canon",
+                      "marker_seeds"):
+                a, b = getattr(g, f), getattr(h, f)
+                assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+
 def test_seeding_build_failure_raises(dev, tmp_path, monkeypatch):
     """A kernel source that does not compile makes the CUDA call raise:
     no wrapper carries on with the plain version."""
